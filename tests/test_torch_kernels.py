@@ -1,0 +1,122 @@
+"""The two hand-written kernels of tpuimage_torch (``ops.kernels``).
+
+On the CPU each wrapper takes its plain PyTorch version; those are held
+here against tpuimage's references exactly (max |diff| 0): the Pallas
+kernels run in interpret mode and the XLA / scatter paths, as tpuimage's
+own tests run them. The CUDA kernels themselves run only on the card:
+``tests/test_torch_cuda.py`` compares them with the plain versions there.
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from tpuimage.ops import histogram as jhist
+from tpuimage.ops import hough as jhough
+from tpuimage.ops.pallas_kernels import hist256_batch_pallas
+
+from tpuimage_torch.ops import histogram, hough, kernels
+
+# one intra-op thread: pytest-xdist runs several workers side by side, and
+# PyTorch's default of one spinning thread per core each slows every
+# worker many times over
+torch.set_num_threads(1)
+
+
+def _planes(rng, n):
+    """Histogram inputs like DocScanner's: nearly one-valued (sub_raw and
+    blackhat planes are mostly 0), random, and constant."""
+    sparse = np.zeros(n, np.uint8)
+    hit = rng.random(n) < 0.03
+    sparse[hit] = rng.integers(1, 256, hit.sum())
+    return np.stack([sparse, rng.integers(0, 256, n, dtype=np.uint8),
+                     np.full(n, 255, np.uint8), np.zeros(n, np.uint8)])
+
+
+@pytest.mark.parametrize("n", [4096, 1003])   # a multiple of 16, and not
+def test_hist256_ref_matches_pallas_and_scatter(rng, n):
+    planes = _planes(rng, n)
+    ours = kernels.hist256_batch(torch.from_numpy(planes)).numpy()
+    np.testing.assert_array_equal(
+        ours, np.asarray(hist256_batch_pallas(jnp.asarray(planes), interpret=True)))
+    for i, p in enumerate(planes):
+        ref = np.asarray(jhist.hist256(jnp.asarray(p), impl="scatter"))
+        np.testing.assert_array_equal(ours[i], ref)
+        np.testing.assert_array_equal(histogram.hist256(torch.from_numpy(p)).numpy(), ref)
+    assert ours.dtype == np.int32 and (ours.sum(1) == n).all()
+
+
+def _accumulate(edges):
+    """tpuimage_torch's vote path over a (B, H, W) stack (compaction +
+    the hough_votes wrapper)."""
+    acc, _ = hough.hough_accumulator(torch.from_numpy(edges))
+    return acc.numpy()
+
+
+@pytest.mark.parametrize("shape,density", [((59, 83), 0.02), ((59, 83), 0.15),
+                                           ((240, 320), 0.10)])
+def test_hough_votes_ref_matches_xla_and_pallas(rng, shape, density):
+    edges = (rng.random((2,) + shape) < density).astype(np.uint8) * 255
+    ours = _accumulate(edges)
+    assert ours.shape == (2, (shape[0] + shape[1]) * 2 + 1, 180)
+    for b in range(2):
+        e = jnp.asarray(edges[b])
+        np.testing.assert_array_equal(
+            ours[b], np.asarray(jhough.hough_accumulator(e, impl="xla")))
+        np.testing.assert_array_equal(
+            ours[b], np.asarray(jhough.hough_accumulator(e, impl="pallas")))
+
+
+def test_hough_votes_ref_on_a4_page_coordinates(rng):
+    """The rho rounding at the page scale: every bin of an A4-sized edge
+    map at 5% density against tpuimage's XLA path."""
+    edges = (rng.random((1, 1200, 849)) < 0.05).astype(np.uint8) * 255
+    ours = _accumulate(edges)
+    np.testing.assert_array_equal(
+        ours[0], np.asarray(jhough.hough_accumulator(jnp.asarray(edges[0]), impl="xla")))
+
+
+def test_hough_votes_counts_cap_the_list(rng):
+    xs = torch.from_numpy(rng.integers(0, 50, (3, 40)).astype(np.int32))
+    ys = torch.from_numpy(rng.integers(0, 30, (3, 40)).astype(np.int32))
+    cos_np, sin_np = hough.hough_tables()
+    cos_t, sin_t = torch.from_numpy(cos_np), torch.from_numpy(sin_np)
+    numrho = (50 + 30) * 2 + 1
+    counts = torch.tensor([0, 17, 40], dtype=torch.int32)
+    acc = kernels.hough_votes(xs, ys, counts, cos_t, sin_t, numrho, 80)
+    np.testing.assert_array_equal(acc.sum(dim=1).numpy(),
+                                  np.repeat([[0], [17], [40]], 180, axis=1))
+    full = kernels.hough_votes(xs[1:2, :17].contiguous(), ys[1:2, :17].contiguous(),
+                               counts[1:2], cos_t, sin_t, numrho, 80)
+    np.testing.assert_array_equal(acc[1].numpy(), full[0].numpy())
+
+
+def test_wrappers_check_inputs_and_count_only_launches():
+    kernels.reset_launch_counts()
+    x = torch.zeros((2, 64), dtype=torch.uint8)
+    kernels.hist256_batch(x)
+    assert kernels.launch_counts() == {"hist256": 0, "hough_votes": 0}
+    with pytest.raises(TypeError):
+        kernels.hist256_batch(x.to(torch.int32))
+    with pytest.raises(ValueError):
+        kernels.hist256_batch(x[0])
+    with pytest.raises(ValueError):
+        kernels.hist256_batch(torch.zeros((64, 2), dtype=torch.uint8).t())
+    # a tensor that is neither on the CPU nor on a card reaches no plain version
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.hist256_batch(torch.zeros((2, 64), dtype=torch.uint8, device="meta"))
+    xs = torch.zeros((1, 4), dtype=torch.int32)
+    tab = torch.zeros(180, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        kernels.hough_votes(xs, torch.zeros((1, 5), dtype=torch.int32),
+                            torch.zeros(1, dtype=torch.int32), tab, tab, 11, 5)
+    with pytest.raises(TypeError):
+        kernels.hough_votes(xs, xs, torch.zeros(1, dtype=torch.int64), tab, tab, 11, 5)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()

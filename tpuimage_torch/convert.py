@@ -1,0 +1,44 @@
+"""The state carried across from tpuimage.
+
+DocScanner has no learned weights: its state is the config plus static
+tables (the Q8 Gaussian taps, the f32 adaptive-threshold taps, the Hough
+cos/sin tables and the structuring elements). The tables are built from
+numpy exactly as tpuimage builds them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from tpuimage_torch.ops.filters import gaussian_kernel_q8, get_gaussian_kernel
+from tpuimage_torch.ops.hough import hough_tables
+from tpuimage_torch.pipelines.docscan import (INK_DILATE_SE, DocScanConfig,
+                                              adaptive_block, blackhat_se,
+                                              illum_ksize, mask_ksize)
+
+
+def config_from_tpuimage(cfg) -> DocScanConfig:
+    """A tpuimage ``DocScanConfig`` (read by ``dataclasses.asdict``; tpuimage
+    itself is not imported) -> the port's ``DocScanConfig``."""
+    fields = dataclasses.asdict(cfg)
+    ours = {f.name for f in dataclasses.fields(DocScanConfig)}
+    if set(fields) != ours:
+        raise ValueError(f"config fields differ: {sorted(set(fields) ^ ours)}")
+    return DocScanConfig(**fields)
+
+
+def static_tables(config: DocScanConfig, page_shape=(1200, 849)) -> dict:
+    """The static tables the post-warp program uses on a page of
+    ``page_shape`` (H, W)."""
+    cos_t, sin_t = hough_tables()
+    tables = {
+        "illum_taps_q8": gaussian_kernel_q8(illum_ksize(*page_shape, config)),
+        "mask_taps_q8": gaussian_kernel_q8(mask_ksize(config)),
+        "adaptive_taps_f32": get_gaussian_kernel(adaptive_block(config)).astype(np.float32),
+        "hough_cos": cos_t,
+        "hough_sin": sin_t,
+        "se_blackhat": blackhat_se(config),
+        "se_ink_dilate": INK_DILATE_SE,
+    }
+    return tables

@@ -1,0 +1,76 @@
+"""Saturating uint8 arithmetic and NORM_MINMAX (counterpart of
+``tpuimage.ops.arith``).
+
+The f32 expressions are written as separate ops in tpuimage's order:
+they match tpuimage only unfused (an FMA moves pixels across cvRound
+boundaries), so no kernel may fuse them without re-checking parity.
+"""
+from __future__ import annotations
+
+import torch
+
+from tpuimage_torch.core.dtypes import f32, i32, saturate_u8
+
+
+def subtract_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return saturate_u8(i32(a) - i32(b))
+
+
+def divide_u8(a: torch.Tensor, b: torch.Tensor, scale: int = 1) -> torch.Tensor:
+    """cv2.divide on uint8 with an integer scale: dst = saturate(round(
+    a*scale/b)), b == 0 -> 0, as tpuimage's exact integer quotient with
+    round half to even. (tpuimage's f32 path for other scales is not
+    ported: DocScanner divides by 255.)"""
+    if not (a.dtype == torch.uint8 and b.dtype == torch.uint8
+            and float(scale) == int(scale) and 0 <= int(scale) < (1 << 23)):
+        raise NotImplementedError("divide_u8 takes uint8 inputs and an integer scale")
+    n = i32(a) * int(scale)
+    d = i32(b)
+    safe = torch.clamp(d, min=1)
+    q0 = torch.div(n, safe, rounding_mode="floor")
+    r0 = n - q0 * safe
+    q = (q0 + (2 * r0 > safe).to(torch.int32)
+         + ((2 * r0 == safe) & (q0 % 2 == 1)).to(torch.int32))
+    q = torch.where(d > 0, q, torch.zeros_like(q))
+    return torch.clamp(q, 0, 255).to(torch.uint8)
+
+
+def max_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(a, b)
+
+
+def _minmax_scale(smin: torch.Tensor, smax: torch.Tensor, alpha: float,
+                  beta: float):
+    """The NORM_MINMAX affine coefficients in f32, shared by the per-pixel
+    and the LUT forms so both compute the identical expression."""
+    rng = smax - smin
+    pos = rng > 0
+    # a true division: `scalar / tensor` would be reciprocal-then-multiply
+    span = torch.full_like(rng, beta - alpha)
+    scale = torch.where(pos, span / torch.where(pos, rng, torch.ones_like(rng)),
+                        torch.zeros_like(rng))
+    return scale, alpha - smin * scale
+
+
+def normalize_minmax(img: torch.Tensor, alpha: float = 0.0,
+                     beta: float = 255.0) -> torch.Tensor:
+    """cv2.normalize(..., alpha, beta, NORM_MINMAX) on each uint8 (H, W)
+    plane of a (..., H, W) tensor."""
+    x = f32(img)
+    smin = torch.amin(x, dim=(-2, -1), keepdim=True)
+    smax = torch.amax(x, dim=(-2, -1), keepdim=True)
+    scale, offset = _minmax_scale(smin, smax, alpha, beta)
+    return saturate_u8(x * scale + offset)
+
+
+def normalize_minmax_lut(smin: torch.Tensor, smax: torch.Tensor,
+                         alpha: float = 0.0, beta: float = 255.0) -> torch.Tensor:
+    """The NORM_MINMAX map as 256-entry uint8 LUTs: smin/smax of shape
+    (...,) give LUTs of shape (..., 256) with ``lut[v]`` equal to
+    normalize_minmax's value for a pixel of value v. Monotone
+    non-decreasing, which lets callers pull thresholds back to the raw
+    plane."""
+    smin, smax = f32(smin)[..., None], f32(smax)[..., None]
+    scale, offset = _minmax_scale(smin, smax, alpha, beta)
+    v = torch.arange(256, dtype=torch.float32, device=smin.device)
+    return saturate_u8(v * scale + offset)

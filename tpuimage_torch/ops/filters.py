@@ -1,0 +1,117 @@
+"""Separable Gaussian filters bit-matching OpenCV's 8-bit paths
+(counterpart of ``tpuimage.ops.filters``).
+
+The 8u blur quantizes the float64 kernel to Q8.8 taps by left-to-right
+error diffusion; all intermediates are integers < 2**24, exact in f32 in
+any order. The f32 blur (adaptiveThreshold's mean) is NOT order-free: it
+follows OpenCV's symmetric tap order, vertical pass first, one op at a
+time, which is the order tpuimage's CPU path rounds in.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpuimage_torch.core.borders import BORDER_REFLECT_101, pad2d
+from tpuimage_torch.core.dtypes import f32
+
+# Fixed binary kernels OpenCV uses for sigma<=0, ksize<=7 (small_gaussian_tab)
+_SMALL_GAUSSIAN = {
+    1: np.array([1.0]),
+    3: np.array([0.25, 0.5, 0.25]),
+    5: np.array([0.0625, 0.25, 0.375, 0.25, 0.0625]),
+    7: np.array([0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125]),
+}
+
+
+def gaussian_sigma_from_ksize(ksize: int) -> float:
+    """OpenCV: sigma = 0.3*((ksize-1)*0.5 - 1) + 0.8 when sigma <= 0."""
+    return 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+
+
+def gaussian_ksize_from_sigma(sigma: float, depth_8u: bool = True) -> int:
+    """OpenCV createGaussianKernels: ksize = round(sigma*(8u?3:4)*2+1) | 1."""
+    k = int(round(sigma * (3 if depth_8u else 4) * 2 + 1)) | 1
+    return max(k, 1)
+
+
+def get_gaussian_kernel(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """Float64 kernel identical to cv2.getGaussianKernel (normalized)."""
+    if sigma <= 0 and ksize <= 7 and ksize in _SMALL_GAUSSIAN:
+        return _SMALL_GAUSSIAN[ksize].copy()
+    s = sigma if sigma > 0 else gaussian_sigma_from_ksize(ksize)
+    c = (ksize - 1) * 0.5
+    x = np.arange(ksize, dtype=np.float64) - c
+    k = np.exp(-(x * x) / (2.0 * s * s))
+    return k / k.sum()
+
+
+def gaussian_kernel_q8(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """OpenCV's bit-exact 8u kernel: Q8.8 by left-to-right error diffusion."""
+    c = get_gaussian_kernel(ksize, sigma) * 256.0
+    q = np.zeros(ksize, dtype=np.int64)
+    err = 0.0
+    for i in range(ksize):
+        v = c[i] + err
+        q[i] = np.rint(v)
+        err = v - q[i]
+    return q
+
+
+def _sepconv_valid_f32(padded: torch.Tensor, kx, ky) -> torch.Tensor:
+    """Separable 'valid' convolution of an already-padded (..., H, W) f32
+    tensor: the vertical pass first, then the horizontal one. Symmetric
+    odd kernels accumulate in OpenCV's order
+    ``k[r]*x[0] + sum_i k[r+i]*(x[+i] + x[-i])``; others tap 0..k-1."""
+    kyv = np.asarray(ky, dtype=np.float32).ravel()
+    kxv = np.asarray(kx, dtype=np.float32).ravel()
+
+    def one_axis(x, k, dim):
+        n = len(k)
+        out = x.shape[dim] - n + 1
+        sl = lambda i: x.narrow(dim, i, out)  # noqa: E731
+        if n % 2 == 1 and bool(np.all(k == k[::-1])):
+            r = n // 2
+            acc = sl(r) * float(k[r])
+            for i in range(1, r + 1):
+                acc = acc + (sl(r - i) + sl(r + i)) * float(k[r + i])
+            return acc
+        acc = sl(0) * float(k[0])
+        for i in range(1, n):
+            acc = acc + sl(i) * float(k[i])
+        return acc
+
+    return one_axis(one_axis(padded, kyv, -2), kxv, -1)
+
+
+def gaussian_blur_u8(img: torch.Tensor, ksize: int = 0, sigma: float = 0.0,
+                     border: str = BORDER_REFLECT_101) -> torch.Tensor:
+    """cv2.GaussianBlur on each uint8 (H, W) plane, bit-exact (Q8.8 taps,
+    Q16.16 accumulator, round half up). ksize == 0 derives it from sigma."""
+    if ksize <= 0:
+        if sigma <= 0:
+            return img
+        ksize = gaussian_ksize_from_sigma(sigma)
+    if ksize == 1:
+        return img
+    k = gaussian_kernel_q8(ksize, sigma).astype(np.float32)
+    r = ksize // 2
+    p = pad2d(f32(img), r, r, r, r, mode=border)
+    out32 = _sepconv_valid_f32(p, k, k)  # exact integers in f32, Q16.16
+    return torch.clamp(torch.floor((out32 + 32768.0) * (1.0 / 65536.0)),
+                       0, 255).to(torch.uint8)
+
+
+def gaussian_blur_f32(img: torch.Tensor, ksize: int = 0, sigma: float = 0.0,
+                      border: str = BORDER_REFLECT_101) -> torch.Tensor:
+    """Float Gaussian blur of each (H, W) plane (adaptiveThreshold's mean)."""
+    if ksize <= 0:
+        if sigma <= 0:
+            return img
+        ksize = gaussian_ksize_from_sigma(sigma, depth_8u=False)
+    if ksize == 1:
+        return img
+    k = get_gaussian_kernel(ksize, sigma).astype(np.float32)
+    r = ksize // 2
+    p = pad2d(f32(img), r, r, r, r, mode=border)
+    return _sepconv_valid_f32(p, k, k)

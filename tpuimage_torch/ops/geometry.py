@@ -1,0 +1,227 @@
+"""Resize (INTER_AREA), perspective warp and the deskew rotation
+(counterpart of ``tpuimage.ops.geometry``).
+
+Warp and rotation are inverse-map bilinear gathers with a final cvRound,
+as this OpenCV build computes them in plain f32. The parity contract
+against tpuimage is the README's float contract: max |diff| <= 1 on < 0.5%
+of pixels, where a rounding-order difference lands a 4-tap sum on the
+other side of an x.5 boundary. tpuimage's one-hot matmul tiles are TPU
+devices; the port samples the same coordinates with a gather.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpuimage_torch.core.dtypes import f32, saturate_u8
+
+_RESIZE_BITS = 11          # INTER_RESIZE_COEF_BITS
+_RESIZE_SCALE = 1 << _RESIZE_BITS
+
+
+# ---------------------------------------------------------------------------
+# resize (HW or HWC uint8)
+# ---------------------------------------------------------------------------
+
+def _linear_coeffs_1d(dst: int, src: int):
+    """OpenCV resize INTER_LINEAR source indices + Q11 fixed-point weights."""
+    scale = src / dst
+    x = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+    sx = np.floor(x).astype(np.int64)
+    fx = x - sx
+    fx = np.where(sx < 0, 0.0, fx)
+    sx = np.maximum(sx, 0)
+    fx = np.where(sx >= src - 1, 0.0, fx)
+    sx = np.minimum(sx, src - 1)
+    w1 = np.rint((1.0 - fx) * _RESIZE_SCALE)
+    w2 = np.rint(fx * _RESIZE_SCALE)
+    return sx, w1.astype(np.float32), w2.astype(np.float32)
+
+
+def _bshape(n: int, axis: int, ndim: int):
+    shp = [1] * ndim
+    shp[axis] = n
+    return shp
+
+
+def _resize_linear_u8(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    h, w = img.shape[0], img.shape[1]
+    sy, wy1, wy2 = _linear_coeffs_1d(out_h, h)
+    sx, wx1, wx2 = _linear_coeffs_1d(out_w, w)
+    dev, nd = img.device, img.dim()
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    x = f32(img)
+    left = x[:, t(sx)]
+    right = x[:, t(np.minimum(sx + 1, w - 1))]
+    row = (left * t(wx1).reshape(_bshape(out_w, 1, nd))
+           + right * t(wx2).reshape(_bshape(out_w, 1, nd)))
+    top = row[t(sy)]
+    bot = row[t(np.minimum(sy + 1, h - 1))]
+    acc = (top * t(wy1).reshape(_bshape(out_h, 0, nd))
+           + bot * t(wy2).reshape(_bshape(out_h, 0, nd)))
+    return saturate_u8(torch.floor((acc + 2.0 ** 21) / 2.0 ** 22))
+
+
+def _area_coeffs(dst: int, src: int):
+    scale = src / dst
+    rows = []
+    for d in range(dst):
+        a, b = d * scale, (d + 1) * scale
+        ia, ib = int(np.floor(a)), int(min(np.ceil(b), src))
+        idx = np.arange(ia, ib)
+        wgt = np.minimum(idx + 1, b) - np.maximum(idx, a)
+        rows.append((idx, wgt / (b - a)))
+    n = max(len(r[0]) for r in rows)
+    idx_m = np.zeros((dst, n), dtype=np.int64)
+    wgt_m = np.zeros((dst, n), dtype=np.float32)
+    for d, (idx, wgt) in enumerate(rows):
+        idx_m[d, :len(idx)] = idx
+        wgt_m[d, :len(idx)] = wgt
+    return idx_m, wgt_m
+
+
+def _resize_area_u8(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    h, w = img.shape[0], img.shape[1]
+    if h % out_h == 0 and w % out_w == 0:
+        # integer decimation: exact box mean with cvRound
+        ky, kx = h // out_h, w // out_w
+        x = f32(img).reshape((out_h, ky, out_w, kx) + tuple(img.shape[2:]))
+        return saturate_u8(x.sum(dim=(1, 3)) * (1.0 / (ky * kx)))
+    # fractional INTER_AREA: weighted box per output pixel, summed tap by
+    # tap in tpuimage's order
+    iy, wy = _area_coeffs(out_h, h)
+    ix, wx = _area_coeffs(out_w, w)
+    dev, nd = img.device, img.dim()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    x = f32(img)
+    row = None
+    for j in range(ix.shape[1]):
+        term = x[:, t(ix[:, j])] * t(wx[:, j]).reshape(_bshape(out_w, 1, nd))
+        row = term if row is None else row + term
+    acc = None
+    for j in range(iy.shape[1]):
+        term = row[t(iy[:, j])] * t(wy[:, j]).reshape(_bshape(out_h, 0, nd))
+        acc = term if acc is None else acc + term
+    return saturate_u8(acc)
+
+
+def resize(img: torch.Tensor, out_h: int, out_w: int,
+           interpolation: str = "area") -> torch.Tensor:
+    """cv2.resize INTER_AREA of an (H, W) or (H, W, C) uint8 tensor
+    (upscales fall back to bilinear, as OpenCV's do). tpuimage's other
+    interpolations are not ported yet."""
+    if interpolation != "area":
+        raise NotImplementedError(f"interpolation {interpolation!r}")
+    if out_h == img.shape[0] and out_w == img.shape[1]:
+        return img
+    if out_h >= img.shape[0] or out_w >= img.shape[1]:
+        return _resize_linear_u8(img, out_h, out_w)
+    return _resize_area_u8(img, out_h, out_w)
+
+
+def resize_long_side(img: torch.Tensor, scale_long: int,
+                     interpolation: str = "area") -> torch.Tensor:
+    """Long side -> scale_long, aspect kept; no-op when already smaller."""
+    h, w = int(img.shape[0]), int(img.shape[1])
+    long_side = max(h, w)
+    if long_side <= scale_long:
+        return img
+    s = scale_long / long_side
+    return resize(img, int(round(h * s)), int(round(w * s)), interpolation)
+
+
+# ---------------------------------------------------------------------------
+# warps (batched inverse-map bilinear gather)
+# ---------------------------------------------------------------------------
+
+def get_perspective_transform(src_pts, dst_pts) -> np.ndarray:
+    """cv2.getPerspectiveTransform: 3x3 homography from 4 point pairs
+    (host numpy, the same 8x8 solve as tpuimage)."""
+    src = np.asarray(src_pts, dtype=np.float64).reshape(4, 2)
+    dst = np.asarray(dst_pts, dtype=np.float64).reshape(4, 2)
+    A = np.zeros((8, 8), dtype=np.float64)
+    b = np.zeros(8, dtype=np.float64)
+    for i in range(4):
+        x, y = src[i]
+        u, v = dst[i]
+        A[i] = [x, y, 1, 0, 0, 0, -x * u, -y * u]
+        A[i + 4] = [0, 0, 0, x, y, 1, -x * v, -y * v]
+        b[i], b[i + 4] = u, v
+    h = np.linalg.solve(A, b)
+    return np.append(h, 1.0).reshape(3, 3)
+
+
+def _bilinear_gather_u8(img: torch.Tensor, map_x: torch.Tensor,
+                        map_y: torch.Tensor, border: str) -> torch.Tensor:
+    """Sample each image of a (B, H, W[, C]) uint8 batch at float coords
+    (B, oh, ow) with cv2 INTER_LINEAR semantics; ``border`` is
+    ``constant`` (0) or ``replicate``."""
+    b, h, w = img.shape[0], img.shape[1], img.shape[2]
+    chan = img.dim() == 4
+    x0 = torch.floor(map_x)
+    y0 = torch.floor(map_y)
+    fx, fy = map_x - x0, map_y - y0
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    flat = img.reshape((b, h * w) + tuple(img.shape[3:]))
+    base = (torch.arange(b, device=img.device) * (h * w)).reshape(b, 1, 1)
+    flat = flat.reshape((b * h * w,) + tuple(img.shape[3:]))
+
+    def tap(yi, xi):
+        yc = torch.clamp(yi, 0, h - 1)
+        xc = torch.clamp(xi, 0, w - 1)
+        v = f32(flat[base + yc * w + xc])
+        if border == "replicate":
+            return v
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        if chan:
+            inb = inb[..., None]
+        return torch.where(inb, v, torch.zeros_like(v))
+
+    def wmul(wy, wx):
+        ww = wy * wx
+        return ww[..., None] if chan else ww
+
+    acc = (tap(y0i, x0i) * wmul(1.0 - fy, 1.0 - fx)
+           + tap(y0i, x0i + 1) * wmul(1.0 - fy, fx)
+           + tap(y0i + 1, x0i) * wmul(fy, 1.0 - fx)
+           + tap(y0i + 1, x0i + 1) * wmul(fy, fx))
+    return saturate_u8(acc)
+
+
+def _grid(out_h: int, out_w: int, device) -> tuple:
+    ys = torch.arange(out_h, dtype=torch.float32, device=device)[:, None]
+    xs = torch.arange(out_w, dtype=torch.float32, device=device)[None, :]
+    return ys.expand(out_h, out_w), xs.expand(out_h, out_w)
+
+
+def warp_perspective_batch(imgs: torch.Tensor, minv: torch.Tensor,
+                           out_h: int, out_w: int) -> torch.Tensor:
+    """cv2.warpPerspective INTER_LINEAR (constant-0 border) of a
+    (B, H, W, C) uint8 batch with per-image INVERSE homographies
+    (B, 3, 3) float32."""
+    ys, xs = _grid(out_h, out_w, imgs.device)
+    a = minv.to(torch.float32).reshape(-1, 9, 1, 1)
+    ac = lambda i: a[:, i]  # noqa: E731
+    denom = ac(6) * xs + ac(7) * ys + ac(8)
+    denom = torch.where(denom != 0, denom, torch.full_like(denom, 1e-20))
+    sx = (ac(0) * xs + ac(1) * ys + ac(2)) / denom
+    sy = (ac(3) * xs + ac(4) * ys + ac(5)) / denom
+    return _bilinear_gather_u8(imgs, sx, sy, border="constant")
+
+
+def rotate_pages(imgs: torch.Tensor, angles_deg: torch.Tensor,
+                 max_angle: float) -> torch.Tensor:
+    """Rotate each (H, W) page of a (B, H, W) uint8 batch about its center
+    by its angle in degrees, clipped to +-max_angle, bilinear with a
+    replicate border: the output contract of tpuimage's
+    ``rotate_traced_tiled`` (the deskew rotation)."""
+    b, h, w = imgs.shape
+    cx, cy = w / 2.0, h / 2.0
+    a = torch.deg2rad(torch.clamp(f32(angles_deg), -max_angle, max_angle))
+    ca = torch.cos(a).reshape(b, 1, 1)
+    sa = torch.sin(a).reshape(b, 1, 1)
+    gy, gx = _grid(h, w, imgs.device)
+    sy = sa * (gx - cx) + ca * (gy - cy) + cy
+    sx = ca * (gx - cx) - sa * (gy - cy) + cx
+    return _bilinear_gather_u8(imgs, sx, sy, border="replicate")

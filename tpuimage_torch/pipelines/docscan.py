@@ -1,0 +1,494 @@
+"""DocScanner's serving path on PyTorch (counterpart of
+``tpuimage.pipelines.docscan``).
+
+``scan_batch`` runs four phases over a list of RGB photos:
+
+1. localize (device): gray -> Canny -> Hough segments, one batched call
+   per input shape; then the host contour walk and quad fit per image;
+2. warp (device): quad pages through their inverse homographies to the
+   page geometry (A4 portrait at scale_long: 1200x849), use-whole pages
+   resized (INTER_AREA) with their aspect kept;
+3. post-warp (device): ``docscan_post_warp_batch`` per page shape:
+   illumination, stretch, ink mask with two Otsu solves, adaptive
+   threshold, weighting, Canny -> Hough deskew angle -> rotation of the
+   pages whose angle is not 0, cleanup;
+4. results (host): per-request dicts.
+
+Per-request failures are isolated as in tpuimage: a host-side failure
+marks its own request, a failed batched device call marks its group.
+Nothing here imports the JAX package: the host-only quad-fit helpers are
+the port's copies (``tpuimage_torch.detect.contours``,
+``tpuimage_torch.ops.draw``), and image paths load through PIL lazily.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpuimage_torch.detect import contours as cnt
+from tpuimage_torch.ops import geometry
+from tpuimage_torch.ops.arith import (divide_u8, max_u8, normalize_minmax,
+                                      normalize_minmax_lut, subtract_u8)
+from tpuimage_torch.ops.color import rgb_to_gray
+from tpuimage_torch.ops.draw import draw_segments
+from tpuimage_torch.ops.edges import canny
+from tpuimage_torch.ops.filters import gaussian_blur_u8
+from tpuimage_torch.ops.histogram import hist256_batch, otsu_from_hist
+from tpuimage_torch.ops.hough import hough_fold_median_angle, hough_lines_p_det
+from tpuimage_torch.ops.morphology import (dilate, morph_blackhat, morph_close,
+                                           structuring_element)
+from tpuimage_torch.ops.threshold import adaptive_threshold, threshold_binary
+
+
+@dataclasses.dataclass(frozen=True)
+class DocScanConfig:
+    """All tunables of the reference DocScanner (same fields and defaults
+    as ``tpuimage.pipelines.docscan.DocScanConfig``)."""
+    page: str = "A4"
+    scale_long: int = 1600
+    bilateral_d: int = 9
+    bilateral_sigma_color: float = 75.0
+    bilateral_sigma_space: float = 75.0
+    gaussian_ksize: int = 0
+    canny_low: int = 50
+    canny_high: int = 150
+    min_area_ratio: float = 0.2
+    max_area_ratio: float = 0.98
+    illum_method: str = "subtract"
+    illum_blur_frac: float = 0.02
+    block_size: int = 35
+    C: int = 10
+    thresh_method: str = "gaussian"
+    mask_blur_ksize: int = 51
+    blackhat_ksize: int = 9
+    blackhat_vertical_ratio: float = 2.0
+    ink_dilate_iters: int = 1
+    mask_thresh_offset: int = 8
+    morph_ksize: int = 3
+    morph_iters: int = 1
+    max_rotate: float = 10.0
+    fallback_use_whole: bool = True
+    min_quad_area_ratio: float = 0.15
+    # deskew Hough edge budget; 0 = the density-scaled default
+    deskew_max_edges: int = 0
+
+
+# The GUI override config that produced the committed scan_03..08 goldens.
+GUI_DOCUMENT_CONFIG = DocScanConfig(
+    scale_long=1200, illum_method="divide", illum_blur_frac=0.05,
+    block_size=31, C=3, canny_low=30, canny_high=100,
+    morph_ksize=1, morph_iters=0)
+
+
+# ---------------------------------------------------------------------------
+# static sizes of the post-warp stages (also read by convert.static_tables)
+# ---------------------------------------------------------------------------
+
+def illum_ksize(h: int, w: int, c: DocScanConfig) -> int:
+    base = max(15, int(round(min(h, w) * c.illum_blur_frac)))
+    return base + (base % 2 == 0)
+
+
+def mask_ksize(c: DocScanConfig) -> int:
+    return c.mask_blur_ksize + (c.mask_blur_ksize % 2 == 0)
+
+
+def adaptive_block(c: DocScanConfig) -> int:
+    return c.block_size + (c.block_size % 2 == 0)
+
+
+def blackhat_se(c: DocScanConfig) -> np.ndarray:
+    bk = max(c.blackhat_ksize, 3)
+    bk += (bk % 2 == 0)
+    bh_h = max(3, int(round(bk * c.blackhat_vertical_ratio)))
+    bh_h += (bh_h % 2 == 0)
+    return structuring_element("rect", (bk, bh_h))
+
+
+INK_DILATE_SE = structuring_element("rect", (2, 2))
+
+
+# ---------------------------------------------------------------------------
+# post-warp program
+# ---------------------------------------------------------------------------
+
+def _raw_otsu_threshold(hist_raw: torch.Tensor, mask_thresh_offset) -> torch.Tensor:
+    """Thresholds on RAW uint8 planes equivalent to the reference's
+    Otsu(-offset) threshold of their NORM_MINMAX-normalized planes.
+
+    normalize_minmax is a monotone per-value map, so the normalized
+    histogram is the raw one pushed through the LUT (an integer
+    ``scatter_add``), and ``norm(x) > t`` pulls back to ``x > T`` with
+    ``T = #{v : lut[v] <= t} - 1``. hist_raw: (B, 256) -> (B,) float32."""
+    nz = (hist_raw > 0).to(torch.uint8)
+    smin = torch.argmax(nz, dim=-1).to(torch.float32)
+    smax = (255 - torch.argmax(torch.flip(nz, dims=(-1,)), dim=-1)).to(torch.float32)
+    lut = normalize_minmax_lut(smin, smax)                          # (B, 256)
+    hist_n = torch.zeros(hist_raw.shape, dtype=torch.int64, device=hist_raw.device)
+    hist_n.scatter_add_(-1, lut.to(torch.int64), hist_raw.to(torch.int64))
+    t_eff = torch.clamp(torch.round(otsu_from_hist(hist_n)) - mask_thresh_offset,
+                        min=0)
+    below = (lut.to(torch.float32) <= t_eff[..., None]).to(torch.int32)
+    return (below.sum(dim=-1) - 1).to(torch.float32)
+
+
+def _illumination(gray: torch.Tensor, c: DocScanConfig) -> torch.Tensor:
+    """Illumination correction of (B, H, W) gray pages, then NORM_MINMAX."""
+    h, w = int(gray.shape[-2]), int(gray.shape[-1])
+    bg = gaussian_blur_u8(gray, ksize=illum_ksize(h, w, c))
+    tmp = (divide_u8(gray, bg, scale=255) if c.illum_method.lower() == "divide"
+           else subtract_u8(gray, bg))
+    return normalize_minmax(tmp)
+
+
+def _ink_planes(stretched: torch.Tensor, c: DocScanConfig):
+    """The two RAW planes the ink mask thresholds: blur - page, and the
+    vertical blackhat."""
+    ink_bg = gaussian_blur_u8(stretched, ksize=mask_ksize(c))
+    return subtract_u8(ink_bg, stretched), morph_blackhat(stretched, blackhat_se(c))
+
+
+def _pre_deskew_stages(warped: torch.Tensor, config: DocScanConfig) -> Dict[str, torch.Tensor]:
+    """Stages 04-06b of a (B, H, W, 3) page batch: illumination, stretch,
+    ink mask, adaptive threshold, mask weighting -> (B, H, W) planes."""
+    c = config
+    illum = _illumination(rgb_to_gray(warped), c)
+    # contrast stretch: illum is already NORM_MINMAX output, so a second
+    # min-max stretch is the identity
+    stretched = illum
+
+    # ink mask: Otsu thresholds of the RAW planes, pulled back through the
+    # normalize LUT (see _raw_otsu_threshold); both histograms in one call
+    sub_raw, bh_raw = _ink_planes(stretched, c)
+    hists = hist256_batch(torch.stack([sub_raw, bh_raw], dim=1)
+                          .reshape(2 * illum.shape[0], -1)).reshape(-1, 2, 256)
+    t_sub = _raw_otsu_threshold(hists[:, 0], c.mask_thresh_offset)
+    t_bh = _raw_otsu_threshold(hists[:, 1], c.mask_thresh_offset)
+
+    base_bin = adaptive_threshold(stretched, 255, c.thresh_method,
+                                  adaptive_block(c), c.C)
+
+    mask_sub = threshold_binary(sub_raw, t_sub[:, None, None])
+    mask_bh = threshold_binary(bh_raw, t_bh[:, None, None])
+    ink_mask = max_u8(mask_sub, mask_bh)
+    if c.ink_dilate_iters > 0:
+        ink_mask = dilate(ink_mask, INK_DILATE_SE, iterations=c.ink_dilate_iters)
+    weighted = torch.where(ink_mask == 0, torch.full_like(base_bin, 255), base_bin)
+    return {"illum": illum, "stretch": stretched, "inkmask": ink_mask,
+            "adapt": base_bin, "weighted": weighted}
+
+
+def _deskew_angle(binary: torch.Tensor, canny_low: int, canny_high: int,
+                  max_rotate: float, max_edges: int = 0):
+    """Canny -> HoughLines(threshold 150) -> median of fold-to-[-90, 90)
+    angles, zeroed where |median| > max_rotate. (B, H, W) -> ((B,) f32
+    angle, (B,) bool edge-budget overflow)."""
+    edges = canny(binary, canny_low, canny_high)
+    med, overflow = hough_fold_median_angle(edges, threshold=150,
+                                            max_edges=max_edges)
+    return torch.where(torch.abs(med) > max_rotate, torch.zeros_like(med), med), overflow
+
+
+def _morph_cleanup(desk: torch.Tensor, config: DocScanConfig) -> torch.Tensor:
+    """Close only, skipped for ksize <= 1."""
+    c = config
+    if c.morph_ksize > 1 and c.morph_iters > 0:
+        se = structuring_element("rect", (c.morph_ksize, c.morph_ksize))
+        return morph_close(desk, se, iterations=c.morph_iters)
+    return desk
+
+
+def docscan_post_warp_batch(warped_batch: torch.Tensor,
+                            config: DocScanConfig) -> Dict[str, torch.Tensor]:
+    """The post-warp program (stages 04-08) over a (B, H, W, 3) uint8 page
+    batch -> dict of (B, H, W) stage planes plus (B,) ``deskew_angle`` and
+    ``deskew_overflow``. Only the pages whose angle is not 0 are rotated;
+    angle 0 is an exact identity."""
+    c = config
+    pre = _pre_deskew_stages(warped_batch, c)
+    weighted = pre["weighted"]
+    angles, overflows = _deskew_angle(weighted, c.canny_low, c.canny_high,
+                                      c.max_rotate, c.deskew_max_edges)
+    rot = torch.nonzero(angles != 0.0).flatten()
+    desk = weighted
+    if rot.numel():
+        desk = weighted.clone()
+        desk[rot] = geometry.rotate_pages(weighted[rot], angles[rot], c.max_rotate)
+    clean = _morph_cleanup(desk, c)
+    return {**pre, "deskew": desk, "clean": clean, "deskew_angle": angles,
+            "deskew_overflow": overflows}
+
+
+def docscan_post_warp(warped_rgb: torch.Tensor,
+                      config: DocScanConfig) -> Dict[str, torch.Tensor]:
+    """docscan_post_warp_batch of one (H, W, 3) page; unbatched outputs."""
+    out = docscan_post_warp_batch(warped_rgb[None], config)
+    return {k: v[0] for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# localize (device) + quad fit (host)
+# ---------------------------------------------------------------------------
+
+def _localize_device_batch(rgbs: torch.Tensor, canny_low: int, canny_high: int):
+    """Device half of localize over a (B, H, W, 3) stack: Canny edges and
+    deterministic Hough segments (threshold 80, minLineLength 80) ->
+    (edges (B, H, W) u8, segs (B, 128, 4) f32, ok (B, 128) bool)."""
+    edges = canny(rgb_to_gray(rgbs), canny_low, canny_high)
+    segs, ok = hough_lines_p_det(edges, threshold=80, min_line_length=80.0,
+                                 max_lines=128)
+    return edges, segs, ok
+
+
+def order_quad_points(pts: np.ndarray) -> np.ndarray:
+    """TL/TR/BR/BL by coordinate sum/difference."""
+    pts = np.asarray(pts, dtype=np.float32).reshape(4, 2)
+    s = pts.sum(axis=1)
+    d = pts[:, 1] - pts[:, 0]
+    out = np.zeros((4, 2), dtype=np.float32)
+    out[0] = pts[np.argmin(s)]
+    out[2] = pts[np.argmax(s)]
+    out[1] = pts[np.argmin(d)]
+    out[3] = pts[np.argmax(d)]
+    return out
+
+
+def _largest_quadrilateral(contour_list) -> Optional[np.ndarray]:
+    """approxPolyDP(0.02*peri), keep 4-gons, largest area."""
+    best, max_area = None, 0.0
+    for c in contour_list:
+        if len(c) < 4:
+            continue
+        peri = cnt.arc_length(c, closed=True)
+        approx = cnt.approx_poly_dp(c, 0.02 * peri, closed=True)
+        if len(approx) == 4:
+            area = cnt.contour_area(approx)
+            if area > max_area:
+                max_area, best = area, approx
+    return None if best is None else np.asarray(best, dtype=np.float32).reshape(4, 2)
+
+
+def _quad_from_localize(edges: np.ndarray, segs: np.ndarray, ok: np.ndarray,
+                        shape, config: DocScanConfig) -> Optional[np.ndarray]:
+    """Host half of localize: draw the segments over the edge map, trace
+    external contours, pick the largest quadrilateral."""
+    line_img = draw_segments(edges.shape, segs[ok], thickness=2)
+    contour_list = cnt.find_external_contours(edges | line_img)
+    img_area = shape[0] * shape[1]
+    areas = cnt.contour_areas(contour_list) / max(img_area, 1)
+    filtered = [c for c, a in zip(contour_list, areas)
+                if config.min_area_ratio <= a <= config.max_area_ratio]
+    quad = _largest_quadrilateral(filtered if filtered else contour_list)
+    if quad is None:
+        if not contour_list:
+            return None
+        c = max(contour_list, key=cnt.contour_area)
+        quad = cnt.box_points(cnt.min_area_rect(c))
+    return order_quad_points(quad)
+
+
+def _warp_target_size(quad: np.ndarray, page: str, scale_long: int) -> Tuple[int, int]:
+    """Page ratio x portrait test -> (th, tw)."""
+    tl, tr, br, bl = quad
+    width = max(int(np.linalg.norm(tr - tl)), int(np.linalg.norm(br - bl)))
+    height = max(int(np.linalg.norm(bl - tl)), int(np.linalg.norm(br - tr)))
+    portrait = height >= width
+    pu = page.upper()
+    if pu in ("A4", "A3", "A5"):
+        ratio = math.sqrt(2.0)
+    elif pu == "LETTER":
+        ratio = 11.0 / 8.5
+    else:
+        ratio = height / max(width, 1)
+    if portrait:
+        th = scale_long
+        tw = int(round(th / ratio))
+    else:
+        tw = scale_long
+        th = int(round(tw * ratio))
+    return th, tw
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def _load_rgb(path) -> np.ndarray:
+    from PIL import Image  # only for requests given as paths
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _as_rgb_tensor(item) -> torch.Tensor:
+    if isinstance(item, (str, os.PathLike)):
+        item = _load_rgb(item)
+    t = item if isinstance(item, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(item))
+    if t.dtype != torch.uint8 or t.dim() != 3 or t.shape[2] != 3:
+        raise ValueError(f"expected a uint8 HxWx3 RGB image, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    return t
+
+
+def _scan_localize(inputs, config: DocScanConfig, device: torch.device) -> dict:
+    """Phase 1: load, group by shape, one localize call per group on the
+    device, then the host quad fit of each request."""
+    n = len(inputs)
+    rgbs: list = [None] * n
+    metas: list = [None] * n
+    for i, item in enumerate(inputs):
+        try:
+            rgbs[i] = _as_rgb_tensor(item)
+        except Exception as e:  # noqa: BLE001 — per-request isolation
+            metas[i] = {"error": str(e)}
+    by_shape: Dict[tuple, list] = {}
+    for i, rgb in enumerate(rgbs):
+        if rgb is not None:
+            by_shape.setdefault(tuple(rgb.shape), []).append(i)
+    stacks: Dict[tuple, tuple] = {}   # shape -> (device stack, {idx: row})
+    quads: list = [None] * n
+    for shape, idxs in by_shape.items():
+        try:
+            stack = torch.stack([rgbs[i].to(device) for i in idxs])
+            stacks[shape] = (stack, {i: j for j, i in enumerate(idxs)})
+            edges, segs, ok = _localize_device_batch(stack, config.canny_low,
+                                                     config.canny_high)
+            edges, segs, ok = edges.cpu().numpy(), segs.cpu().numpy(), ok.cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — batched device call: whole group
+            for i in idxs:
+                metas[i] = {"error": str(e)}
+                rgbs[i] = None
+            continue
+        for j, i in enumerate(idxs):
+            try:
+                quads[i] = _quad_from_localize(edges[j], segs[j], ok[j],
+                                               shape[:2], config)
+            except Exception as e:  # noqa: BLE001 — per-request isolation
+                metas[i] = {"error": str(e)}
+                rgbs[i] = None
+    return {"n": n, "rgbs": rgbs, "metas": metas, "quads": quads,
+            "stacks": stacks}
+
+
+def _scan_warp(state: dict, config: DocScanConfig) -> None:
+    """Phase 2: quad pages warp to the page geometry, one batched call per
+    (input shape, target shape); use-whole pages resize with their aspect
+    kept. Leaves ``state['pages']`` on the device."""
+    rgbs, metas, quads = state["rgbs"], state["metas"], state["quads"]
+    stacks = state["stacks"]
+    pages: list = [None] * state["n"]
+    warp_groups: Dict[tuple, list] = {}
+    for i, rgb in enumerate(rgbs):
+        if rgb is None:
+            continue
+        try:
+            quad = quads[i]
+            use_whole = quad is None
+            if quad is not None:
+                ratio = cnt.contour_area(quad) / max(rgb.shape[0] * rgb.shape[1], 1)
+                use_whole = ratio < config.min_quad_area_ratio
+            metas[i] = {"quad": quad, "use_whole": use_whole}
+            stack, pos = stacks[tuple(rgb.shape)]
+            if use_whole:
+                pages[i] = geometry.resize_long_side(stack[pos[i]], config.scale_long,
+                                                     interpolation="area")
+            else:
+                th, tw = _warp_target_size(quad, config.page, config.scale_long)
+                warp_groups.setdefault((tuple(rgb.shape), th, tw), []).append(i)
+        except Exception as e:  # noqa: BLE001 — per-request isolation
+            metas[i] = {"error": str(e)}
+    for (shape, th, tw), idxs in warp_groups.items():
+        dst = np.array([[0, 0], [tw - 1, 0], [tw - 1, th - 1], [0, th - 1]],
+                       dtype=np.float32)
+        minvs, good = [], []
+        for i in idxs:
+            try:   # a degenerate quad must not poison its group
+                minvs.append(np.linalg.inv(geometry.get_perspective_transform(
+                    metas[i]["quad"].astype(np.float32), dst)))
+                good.append(i)
+            except Exception as e:  # noqa: BLE001 — per-request isolation
+                metas[i] = {"error": str(e)}
+        if not good:
+            continue
+        try:
+            stack, pos = stacks[shape]
+            rows = torch.tensor([pos[i] for i in good], device=stack.device)
+            minv = torch.from_numpy(np.stack(minvs).astype(np.float32)).to(stack.device)
+            warped = geometry.warp_perspective_batch(stack.index_select(0, rows),
+                                                     minv, th, tw)
+            for j, i in enumerate(good):
+                pages[i] = warped[j]
+        except Exception as e:  # noqa: BLE001 — batched device call: whole group
+            for i in good:
+                metas[i] = {"error": str(e)}
+    state["pages"] = pages
+    del state["stacks"]
+
+
+def _scan_postwarp(state: dict, config: DocScanConfig) -> None:
+    """Phase 3: the post-warp program per page shape; results come back
+    to the host as numpy."""
+    pages, metas = state["pages"], state["metas"]
+    out_by_idx = {}
+    for shape in {tuple(p.shape) for p in pages if p is not None}:
+        idxs = [i for i, p in enumerate(pages)
+                if p is not None and tuple(p.shape) == shape]
+        try:
+            out = docscan_post_warp_batch(torch.stack([pages[i] for i in idxs]),
+                                          config)
+            clean = out["clean"].cpu().numpy()
+            angles = out["deskew_angle"].cpu().numpy()
+            oflow = out["deskew_overflow"].cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — batched device call: whole group
+            for i in idxs:
+                metas[i] = {"error": str(e)}
+            continue
+        for j, i in enumerate(idxs):
+            out_by_idx[i] = (clean[j], float(angles[j]), bool(oflow[j]))
+    state["out"] = out_by_idx
+    del state["pages"]
+
+
+def _scan_results(state: dict) -> list:
+    """Phase 4: per-request result dicts."""
+    results = []
+    for i, meta in enumerate(state["metas"]):
+        if "error" in meta:
+            results.append(meta)
+        else:
+            binary, angle, oflow = state["out"][i]
+            results.append({**meta, "binary": binary, "deskew_angle": angle,
+                            "deskew_overflow": oflow})
+    return results
+
+
+def scan_batch(inputs, config: DocScanConfig = GUI_DOCUMENT_CONFIG,
+               device=None, mesh=None, fallback_common_shape: bool = False,
+               pipeline_chunk: Optional[int] = None) -> list:
+    """Batched serving path over a list of uint8 HWC RGB ndarrays or
+    tensors (or image paths). Returns, per request, tpuimage's dict
+    ``{quad, use_whole, binary, deskew_overflow}`` plus the page's
+    ``deskew_angle``, or ``{error}``.
+
+    device: where the device phases run (default: ``cuda`` when
+    available, else ``cpu``). ``mesh``, ``fallback_common_shape`` and a
+    positive ``pipeline_chunk`` are not ported yet and raise
+    NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError("scan_batch(mesh=...) is not ported yet")
+    if fallback_common_shape:
+        raise NotImplementedError(
+            "scan_batch(fallback_common_shape=True) is not ported yet")
+    if pipeline_chunk:
+        raise NotImplementedError("scan_batch(pipeline_chunk=...) is not ported yet")
+    dev = torch.device(device if device is not None
+                       else "cuda" if torch.cuda.is_available() else "cpu")
+    state = _scan_localize(inputs, config, dev)
+    _scan_warp(state, config)
+    _scan_postwarp(state, config)
+    return _scan_results(state)
