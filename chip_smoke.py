@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive tpuimage_torch's DocScanner serving path once on one CUDA card.
+"""Drive tpuimage_torch's paths once on one CUDA card: DocScanner's
+serving path, the night paths (gray and RGB) and morph_seq.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -9,12 +10,25 @@ Phases (any failure raises and the exit code is non-zero):
 
 1. device and build: the card's name and power limit, the torch and CUDA
    versions, and the nvcc build of tpuimage_torch/csrc/*.cu;
-2. each kernel against its plain PyTorch version on the card, at the
-   slice's shapes (exact equality), with median CUDA-event times of both;
+2. DocScanner's kernels against their plain PyTorch versions on the card,
+   at the slice's shapes (exact equality), with the median CUDA-event
+   time of one call of each (from runs of 20 calls back to back) and the
+   least time the card could take (bound);
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
    documents, one with tilted text, and one with no page), with the
    kernels' launch counters reset just before and read just after;
-4. card against host: two of those requests again on the CPU.
+4. card against host: two of those requests again on the CPU;
+5. the night and morph_seq kernels against their plain versions, at the
+   slices' shapes: rgb_to_lab and clahe_apply on 8 synthetic night scenes
+   of 1280x853 (the reference's nightview.png), hist256 on their 512 CLAHE
+   tile rows and on morph_seq's eroded planes, gray_erode3 and
+   binary_close3 on 8 RGB document photos of 963x1280 (its sample.jpg);
+6. the paths: ``night_rgb_batch``, ``night_gray_batch`` and
+   ``morphseq_batch`` on those inputs, each with the counters reset just
+   before and read just after, their MP/s, and a profiled window (device
+   busy time against the CUDA-event time, kernels per call, the top
+   kernels; post-warp gets the same in phase 3);
+7. card against host: two images of each path again on the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record. nvcc's full output is kept beside the
@@ -37,6 +51,14 @@ N_REQUESTS = 8
 PHOTO = (1600, 1200)      # height x width: a phone photo held upright
 PAGE = (1200, 849)        # A4 portrait at GUI_DOCUMENT_CONFIG.scale_long
 BINARY_TOL = 0.002        # share of binary pixels card and host may differ on
+NIGHT = (853, 1280)       # nightview.png, height x width
+MORPH = (963, 1280)       # sample.jpg, height x width
+NIGHT_RGB_TOL = (3, 0.001)  # card vs host night_rgb: max levels, share of values
+# the card's peaks for the bound (the H100 SXM data sheet): HBM bytes/s,
+# and f32 operations/s outside the tensor cores, the rate the integer and
+# f32 work of these kernels is counted at
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 
 
 def _nvidia_smi() -> str:
@@ -46,8 +68,11 @@ def _nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, reps: int = 10) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm call."""
+def _cuda_ms(fn, reps: int = 10, calls: int = 1) -> float:
+    """Median CUDA-event time of one call of fn in ms, after one warm
+    call: each of ``reps`` samples times ``calls`` calls back to back, so
+    that with calls > 1 the card's queue stays full and the host's launch
+    overhead hides behind the device work."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -55,27 +80,97 @@ def _cuda_ms(fn, reps: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-def _compare(name, kernel_fn, plain_fn) -> dict:
-    out = kernel_fn()
-    ref = plain_fn()
+def _profile(fn, reps: int = 3):
+    """One warm profiled window of ``reps`` calls of fn: (device kernel
+    time per call in ms, kernels per call, the 3 kernels and the 3 aten
+    ops with the most device time, each as (name, ms per call))."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    if out.shape != ref.shape or out.dtype != ref.dtype:
-        raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs "
-                             f"{tuple(ref.shape)} {ref.dtype}")
-    err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n += 1
+    ops = {a.key: a.self_device_time_total for a in prof.key_averages()
+           if a.key.startswith("aten::")}
+
+    def top(d):
+        return [(k[:60], v / reps / 1e3) for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:3]]
+
+    return sum(by_name.values()) / reps / 1e3, n / reps, top(by_name), top(ops)
+
+
+def _print_profile(what: str, wall_ms: float, fn) -> None:
+    dev_ms, n, kernels, ops = _profile(fn)
+    print(f"{what} profile: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms "
+          f"({100 * dev_ms / wall_ms:.0f}%), {n:.0f} kernels per call; top kernels: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in kernels)
+          + "; top ops: " + "; ".join(f"{k} {v:.3f} ms" for k, v in ops))
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over HBM bandwidth
+    and the operations over the ALU rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ALU_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _hist256_bound(rows: torch.Tensor) -> dict:
+    """Each byte read once and counted once, 256 int32 counts per row written."""
+    return _bound(rows.numel() + rows.shape[0] * 256 * 4, rows.numel())
+
+
+def _launched(path: str, counts: dict, needed) -> dict:
+    """Print a path's launch counts and fail unless each of its kernels
+    launched."""
+    print(f"{path} launches: {counts}")
+    for name in needed:
+        if counts[name] <= 0:
+            raise AssertionError(f"{path} never launched {name}")
+    return counts
+
+
+def _compare(name, kernel_fn, plain_fn, bound: dict) -> dict:
+    """Hold a kernel's output (a tensor or a tuple of them) against its
+    plain version's: exact. Times both and returns the kernel's record;
+    no PyTorch call computes any of these functions alone, so there is no
+    library time."""
+    outs, refs = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    err = 0
+    for out, ref in zip(outs, refs, strict=True):
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs "
+                                 f"{tuple(ref.shape)} {ref.dtype}")
+        err = max(err, int((out.to(torch.int64) - ref.to(torch.int64)).abs().max()))
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain version "
                              f"(max |diff| {err})")
-    rec = {"max_abs_err": err, "ms": _cuda_ms(kernel_fn), "plain_ms": _cuda_ms(plain_fn)}
-    print(f"{name}: shape {tuple(out.shape)} exact; kernel {rec['ms']:.4f} ms, "
-          f"plain {rec['plain_ms']:.4f} ms")
+    rec = {"max_abs_err": err, "ms": _cuda_ms(kernel_fn, reps=5, calls=20),
+           "plain_ms": _cuda_ms(plain_fn, reps=5, calls=20),
+           **bound, "library_ms": None}
+    print(f"{name}: shape {tuple(outs[0].shape)} exact; kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
     return rec
 
 
@@ -85,9 +180,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from tpuimage_torch import synth
-    from tpuimage_torch.ops import edges, hough, kernels
+    from tpuimage_torch.ops import color, edges, histogram, hough, kernels, median
     from tpuimage_torch.ops.color import rgb_to_gray
-    from tpuimage_torch.pipelines import docscan
+    from tpuimage_torch.pipelines import docscan, morphseq, night
 
     dev = torch.device("cuda")
     cfg = docscan.GUI_DOCUMENT_CONFIG
@@ -119,7 +214,8 @@ def main() -> int:
                         torch.full((1, n), 255, dtype=torch.uint8, device=dev)])
     records = {"hist256": _compare(
         f"hist256 (sub_raw/bh_raw planes of {N_REQUESTS} A4 pages + random + constant)",
-        lambda: kernels.hist256_batch(planes), lambda: kernels.hist256_batch_ref(planes))}
+        lambda: kernels.hist256_batch(planes), lambda: kernels.hist256_batch_ref(planes),
+        _hist256_bound(planes))}
 
     weighted = docscan._pre_deskew_stages(pages_d, cfg)["weighted"]
     deskew_edges = edges.canny(weighted, cfg.canny_low, cfg.canny_high)
@@ -134,14 +230,19 @@ def main() -> int:
         numrho = (h + w) * 2 + 1
         xs, ys, counts, _ = hough.compact_edges(e, hough.default_max_edges(h, w))
         args = (xs, ys, counts, cos_t, sin_t, numrho, (numrho - 1) // 2)
+        # each valid edge's two coordinates read, the accumulators written;
+        # per vote y*sin, one fma (2) and the rounding
+        edges_n, n_t = int(counts.sum()), cos_t.shape[0]
+        bound = _bound(8 * edges_n + 4 * N_REQUESTS + 8 * n_t + 4 * N_REQUESTS * numrho * n_t,
+                       4 * edges_n * n_t)
         hough_recs.append(_compare(
             f"hough_votes ({what}: {N_REQUESTS} edge maps {h}x{w}, "
             f"{int(counts.max())} edges max)",
-            lambda: kernels.hough_votes(*args), lambda: kernels.hough_votes_ref(*args)))
+            lambda: kernels.hough_votes(*args), lambda: kernels.hough_votes_ref(*args), bound))
     records["hough_votes"] = {
-        "max_abs_err": max(r["max_abs_err"] for r in hough_recs),
-        "ms": hough_recs[0]["ms"], "plain_ms": hough_recs[0]["plain_ms"],
-        "localize_ms": hough_recs[1]["ms"], "localize_plain_ms": hough_recs[1]["plain_ms"]}
+        **hough_recs[0], "max_abs_err": max(r["max_abs_err"] for r in hough_recs),
+        "localize_ms": hough_recs[1]["ms"], "localize_plain_ms": hough_recs[1]["plain_ms"],
+        "localize_bound_ms": hough_recs[1]["bound_ms"]}
     del planes, weighted, deskew_edges, photo_edges
 
     # --- 3. the main path ----------------------------------------------------
@@ -156,11 +257,7 @@ def main() -> int:
     kernels.reset_launch_counts()
     results = docscan.scan_batch(inputs, cfg, device=dev)
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    print(f"scan_batch launches: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    launches = _launched("scan_batch", kernels.launch_counts(), ("hist256", "hough_votes"))
     for i, r in enumerate(results):
         if "binary" not in r:
             raise AssertionError(f"request {i} failed: {r}")
@@ -204,6 +301,8 @@ def main() -> int:
           f"(the rest of localize+quadfit is the host quad fit)")
     print(f"docscan_post_warp_batch: {pw_ms:.2f} ms per batch of {N_REQUESTS} A4 pages = "
           f"{N_REQUESTS * PAGE[0] * PAGE[1] / 1e3 / pw_ms:.1f} MP/s")
+    _print_profile("docscan_post_warp_batch", pw_ms,
+                   lambda: docscan.docscan_post_warp_batch(pages_d, cfg))
     del stack
 
     # --- 4. card against host -----------------------------------------------
@@ -222,6 +321,121 @@ def main() -> int:
             raise AssertionError(f"request {i}: {frac:.5f} of binary pixels differ")
         print(f"card vs host, request {i}: quad/angle/use_whole equal, "
               f"{frac:.6f} of binary pixels differ (limit {BINARY_TOL})")
+    del inputs, results, host, pages_d
+
+    # --- 5. night and morph_seq kernels against their plain versions --------
+    scenes = np.stack([synth.night_scene(400 + i, *NIGHT) for i in range(N_REQUESTS)])
+    scenes_d = torch.from_numpy(scenes).to(dev)
+    filtered = median.median_blur(scenes_d, 3, channels_last=True).contiguous()
+    tables = color.lab_tables_on(dev)
+    n_night = N_REQUESTS * NIGHT[0] * NIGHT[1]
+    # per pixel: 3 rows of 3 MACs, descale and clamp; L, a, b; 3 saturations
+    records["rgb_to_lab"] = _compare(
+        f"rgb_to_lab ({N_REQUESTS} median-filtered night scenes {NIGHT[1]}x{NIGHT[0]})",
+        lambda: kernels.rgb_to_lab(filtered, tables),
+        lambda: kernels.rgb_to_lab_ref(filtered, tables),
+        _bound(6 * n_night + 4 * tables.numel(), 47 * n_night))
+    lum = kernels.rgb_to_lab(filtered, tables)[..., 0].contiguous()
+    tiles, th, tw = histogram.clahe_tiles(lum, night.TILES, night.TILES)
+    clahe_hist = _compare(
+        f"hist256 ({tiles.shape[0]} CLAHE tile rows of {th}x{tw})",
+        lambda: kernels.hist256_batch(tiles), lambda: kernels.hist256_batch_ref(tiles),
+        _hist256_bound(tiles))
+    luts = histogram.tile_luts_from_counts(kernels.hist256_batch(tiles), night.CLIP_LIMIT,
+                                           th * tw)
+    luts = luts.reshape(N_REQUESTS, night.TILES, night.TILES, 256)
+    R, C = histogram.blend_matrices_on(*NIGHT, th, tw, night.TILES, night.TILES, dev)
+    # per pixel: 6 multiplies and 3 adds
+    records["clahe_apply"] = _compare(
+        f"clahe_apply ({N_REQUESTS} L planes {NIGHT[1]}x{NIGHT[0]}, 8x8 tile LUTs)",
+        lambda: kernels.clahe_apply(lum, luts, R, C),
+        lambda: kernels.clahe_apply_ref(lum, luts, R, C),
+        _bound(2 * n_night + luts.numel() + 4 * (R.numel() + C.numel()), 9 * n_night))
+    del filtered, lum, tiles, luts
+
+    docs = np.stack([synth.document_photo(500 + i, *MORPH) for i in range(N_REQUESTS)])
+    docs_d = torch.from_numpy(docs).to(dev)
+    n_morph = N_REQUESTS * MORPH[0] * MORPH[1]
+    # per pixel: gray (3 MACs, round, shift) and 8 mins
+    records["gray_erode3"] = _compare(
+        f"gray_erode3 ({N_REQUESTS} RGB document photos {MORPH[1]}x{MORPH[0]})",
+        lambda: kernels.gray_erode3(docs_d), lambda: kernels.gray_erode3_ref(docs_d),
+        _bound(5 * n_morph, 15 * n_morph))
+    eroded = kernels.gray_erode3(docs_d)[1]
+    rows = eroded.reshape(N_REQUESTS, -1)
+    morph_hist = _compare(
+        f"hist256 ({N_REQUESTS} eroded planes {MORPH[1]}x{MORPH[0]})",
+        lambda: kernels.hist256_batch(rows), lambda: kernels.hist256_batch_ref(rows),
+        _hist256_bound(rows))
+    thresh = histogram.otsu_from_hist(kernels.hist256_batch(rows))
+    # per pixel: the compare, 8 maxes and 8 mins
+    records["binary_close3"] = _compare(
+        f"binary_close3 ({N_REQUESTS} eroded planes {MORPH[1]}x{MORPH[0]}, "
+        f"Otsu thresholds {thresh.tolist()})",
+        lambda: kernels.binary_close3(eroded, thresh),
+        lambda: kernels.binary_close3_ref(eroded, thresh),
+        _bound(3 * n_morph + 4 * N_REQUESTS, 17 * n_morph))
+    rec = records["hist256"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], clahe_hist["max_abs_err"],
+                             morph_hist["max_abs_err"])
+    for what, r in (("clahe_tiles", clahe_hist), ("morphseq", morph_hist)):
+        rec.update({f"{what}_ms": r["ms"], f"{what}_plain_ms": r["plain_ms"],
+                    f"{what}_bound_ms": r["bound_ms"]})
+    del eroded, rows
+
+    # --- 6. the night and morph_seq paths -----------------------------------
+    gray_scenes = rgb_to_gray(torch.from_numpy(scenes)).numpy()
+    gray_d = torch.from_numpy(gray_scenes).to(dev)
+    paths = (("night_rgb", night.night_rgb_batch, scenes, scenes_d,
+              ("rgb_to_lab", "clahe_apply", "hist256"), NIGHT),
+             ("night_gray", night.night_gray_batch, gray_scenes, gray_d,
+              ("clahe_apply", "hist256"), NIGHT),
+             ("morph_seq", morphseq.morphseq_batch, docs, docs_d,
+              ("gray_erode3", "binary_close3", "hist256"), MORPH))
+    pick = [0, 1]
+    card = {}
+    for name, fn, x_np, x_d, needed, (h, w) in paths:
+        fn(x_np)                                          # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn(x_np)                                    # an array: on the card by default
+        torch.cuda.synchronize()
+        for k, v in _launched(name, kernels.launch_counts(), needed).items():
+            launches[k] += v
+        for k, v in out.items():
+            if v.device.type != "cuda" or v.dtype != torch.uint8 or \
+                    tuple(v.shape[:3]) != (N_REQUESTS, h, w):
+                raise AssertionError(f"{name} {k}: {v.device} {v.dtype} {tuple(v.shape)}")
+        if name.startswith("night") and not (
+                out["enhanced"].float().mean() > out["original"].float().mean()):
+            raise AssertionError(f"{name}: CLAHE did not brighten the night scenes")
+        if name == "morph_seq" and not bool(
+                ((out["step4_closed"] == 0) | (out["step4_closed"] == 255)).all()):
+            raise AssertionError("morph_seq: the closing is not binary")
+        card[name] = {k: v[pick].cpu().numpy() for k, v in out.items()}
+        ms = _cuda_ms(lambda: fn(x_d), reps=3, calls=5)
+        print(f"{name}: {ms:.3f} ms per batch of {N_REQUESTS} {w}x{h} = "
+              f"{N_REQUESTS * h * w / 1e3 / ms:.1f} MP/s (CUDA events, warm, median of 3 "
+              f"runs of 5 calls, input on the card)")
+        _print_profile(name, ms, lambda: fn(x_d))
+        del out
+
+    # --- 7. card against host ------------------------------------------------
+    for name, fn, x_np, _, _, _ in paths:
+        host = {k: v.numpy() for k, v in fn(x_np[pick], device="cpu").items()}
+        for k, c in card[name].items():
+            diff = np.abs(c.astype(np.int32) - host[k].astype(np.int32))
+            n_diff = int((diff > 0).sum())
+            if name == "night_rgb" and k == "enhanced":
+                max_levels, max_share = NIGHT_RGB_TOL
+                if diff.max() > max_levels or n_diff >= max_share * diff.size:
+                    raise AssertionError(f"night_rgb enhanced: {n_diff} of {diff.size} "
+                                         f"values differ, by up to {diff.max()}")
+            elif n_diff:
+                raise AssertionError(f"{name} {k}: {n_diff} pixels differ card vs host")
+            print(f"card vs host, {name} {k} (images {pick}): {n_diff} of {diff.size} "
+                  f"values differ, max |diff| {int(diff.max())}")
+
     torch.cuda.synchronize()
     jax_side = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpuimage")]
     if jax_side:
@@ -230,7 +444,15 @@ def main() -> int:
     sources = {"hist256": ("tpuimage_torch/csrc/hist256.cu",
                            "tpuimage/ops/pallas_kernels.py:1660"),
                "hough_votes": ("tpuimage_torch/csrc/hough_votes.cu",
-                               "tpuimage/ops/pallas_kernels.py:598")}
+                               "tpuimage/ops/pallas_kernels.py:598"),
+               "rgb_to_lab": ("tpuimage_torch/csrc/lab.cu",
+                              "tpuimage/ops/pallas_kernels.py:1007"),
+               "clahe_apply": ("tpuimage_torch/csrc/clahe_apply.cu",
+                               "tpuimage/ops/pallas_kernels.py:1132"),
+               "gray_erode3": ("tpuimage_torch/csrc/morph3.cu",
+                               "tpuimage/ops/pallas_kernels.py:1781"),
+               "binary_close3": ("tpuimage_torch/csrc/morph3.cu",
+                                 "tpuimage/ops/pallas_kernels.py:1809")}
     kernel_line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **records[name]}

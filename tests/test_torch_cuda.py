@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpuimage_torch.ops import hough, kernels
+from tpuimage_torch import synth
+from tpuimage_torch.ops import color, histogram, hough, kernels
 
 
 @pytest.fixture()
@@ -54,3 +55,48 @@ def test_hough_votes_kernel_on_card(cuda_device, shape, density):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["hough_votes"] == before + 1
     assert torch.equal(acc.cpu(), hough.hough_accumulator(edges)[0])
+
+
+# ---------------------------------------------------------------------------
+# the night and morph_seq kernels, at small and odd shapes
+# ---------------------------------------------------------------------------
+
+def _count(name, fn):
+    before = kernels.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 853, 1280), (3, 97, 131)])
+def test_rgb_to_lab_kernel_on_card(cuda_device, shape):
+    rgb = torch.from_numpy(np.random.default_rng(shape[1]).integers(
+        0, 256, shape + (3,), dtype=np.uint8))
+    out = _count("rgb_to_lab", lambda: color.rgb_to_lab(rgb.to(cuda_device)))
+    assert torch.equal(out.cpu(), color.rgb_to_lab(rgb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 853, 1280), (3, 128, 160), (1, 97, 131)])
+def test_clahe_apply_kernel_on_card(cuda_device, shape):
+    gray = torch.from_numpy(synth.night_scene(shape[1], shape[1], shape[2])[..., 0].copy())
+    gray = gray.expand(shape).contiguous()
+    out = _count("clahe_apply", lambda: histogram.clahe(gray.to(cuda_device), 2.0))
+    assert torch.equal(out.cpu(), histogram.clahe(gray, 2.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 963, 1280), (3, 33, 257), (1, 64, 65)])
+def test_morph3_kernels_on_card(cuda_device, shape):
+    rgb = torch.from_numpy(np.random.default_rng(shape[2]).integers(
+        0, 256, shape + (3,), dtype=np.uint8))
+    gray, eroded = _count("gray_erode3", lambda: kernels.gray_erode3(rgb.to(cuda_device)))
+    ref_gray, ref_eroded = kernels.gray_erode3_ref(rgb)
+    assert torch.equal(gray.cpu(), ref_gray) and torch.equal(eroded.cpu(), ref_eroded)
+    thresh = torch.tensor([0.0, 117.0, 254.0][:shape[0]])
+    binary, closed = _count("binary_close3", lambda: kernels.binary_close3(
+        eroded, thresh.to(cuda_device)))
+    ref_binary, ref_closed = kernels.binary_close3_ref(ref_eroded, thresh)
+    assert torch.equal(binary.cpu(), ref_binary) and torch.equal(closed.cpu(), ref_closed)

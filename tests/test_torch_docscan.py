@@ -83,7 +83,8 @@ def test_static_tables_match_tpuimage():
 
 def test_import_pulls_in_no_jax_no_pil_and_no_tpuimage():
     code = ("import sys; import tpuimage_torch.pipelines.docscan, tpuimage_torch.convert, "
-            "tpuimage_torch.synth, tpuimage_torch.ops.kernels; "
+            "tpuimage_torch.synth, tpuimage_torch.ops.kernels, "
+            "tpuimage_torch.pipelines.night, tpuimage_torch.pipelines.morphseq; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'PIL', 'cv2', 'tpuimage')]; "
             "assert not bad, bad")
@@ -236,3 +237,13 @@ def test_scan_batch_isolates_bad_requests(photos):
     for kw in ({"mesh": object()}, {"fallback_common_shape": True}, {"pipeline_chunk": 1}):
         with pytest.raises(NotImplementedError):
             tdoc.scan_batch(photos, CFG, device="cpu", **kw)
+
+
+def test_scan_batch_runs_on_the_card_unless_asked(photos, monkeypatch):
+    """No device means the card: with none present scan_batch raises and
+    names device="cpu", which then runs on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdoc.scan_batch(photos[:1], CFG)
+    out = tdoc.scan_batch(photos[:1], CFG, device="cpu")
+    assert out[0]["binary"].shape == (256, 181)

@@ -1,4 +1,4 @@
-"""The two hand-written kernels of tpuimage_torch (``ops.kernels``).
+"""The hand-written kernels of tpuimage_torch (``ops.kernels``).
 
 On the CPU each wrapper takes its plain PyTorch version; those are held
 here against tpuimage's references exactly (max |diff| 0): the Pallas
@@ -11,11 +11,15 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from tpuimage.ops import color as jcolor
 from tpuimage.ops import histogram as jhist
 from tpuimage.ops import hough as jhough
-from tpuimage.ops.pallas_kernels import hist256_batch_pallas
+from tpuimage.ops.pallas_kernels import (binary_close3_pallas, clahe_apply_pallas,
+                                         gray_erode3_pallas, hist256_batch_pallas,
+                                         rgb_to_lab_pallas)
 
-from tpuimage_torch.ops import histogram, hough, kernels
+from tpuimage_torch import synth
+from tpuimage_torch.ops import color, histogram, hough, kernels
 
 # one intra-op thread: pytest-xdist runs several workers side by side, and
 # PyTorch's default of one spinning thread per core each slows every
@@ -95,7 +99,15 @@ def test_wrappers_check_inputs_and_count_only_launches():
     kernels.reset_launch_counts()
     x = torch.zeros((2, 64), dtype=torch.uint8)
     kernels.hist256_batch(x)
-    assert kernels.launch_counts() == {"hist256": 0, "hough_votes": 0}
+    rgb = torch.zeros((1, 8, 12, 3), dtype=torch.uint8)
+    kernels.rgb_to_lab(rgb, color.lab_tables_on(rgb.device))
+    gray, eroded = kernels.gray_erode3(rgb)
+    kernels.binary_close3(eroded, torch.zeros(1))
+    kernels.clahe_apply(gray, torch.zeros((1, 2, 2, 256), dtype=torch.uint8),
+                        torch.zeros((8, 2)), torch.zeros((2, 12)))
+    assert kernels.launch_counts() == {"hist256": 0, "hough_votes": 0, "rgb_to_lab": 0,
+                                       "clahe_apply": 0, "gray_erode3": 0,
+                                       "binary_close3": 0}
     with pytest.raises(TypeError):
         kernels.hist256_batch(x.to(torch.int32))
     with pytest.raises(ValueError):
@@ -112,6 +124,89 @@ def test_wrappers_check_inputs_and_count_only_launches():
                             torch.zeros(1, dtype=torch.int32), tab, tab, 11, 5)
     with pytest.raises(TypeError):
         kernels.hough_votes(xs, xs, torch.zeros(1, dtype=torch.int64), tab, tab, 11, 5)
+    tables = color.lab_tables_on(rgb.device)
+    with pytest.raises(ValueError):
+        kernels.rgb_to_lab(rgb[..., :2].contiguous(), tables)
+    with pytest.raises(ValueError):
+        kernels.rgb_to_lab(rgb.transpose(1, 2), tables)
+    with pytest.raises(ValueError):
+        kernels.rgb_to_lab(rgb, tables[:-1])
+    with pytest.raises(TypeError):
+        kernels.gray_erode3(rgb.to(torch.int32))
+    with pytest.raises(ValueError):
+        kernels.gray_erode3(rgb[0])
+    with pytest.raises(ValueError):
+        kernels.binary_close3(eroded, torch.zeros(2))
+    with pytest.raises(TypeError):
+        kernels.binary_close3(eroded, torch.zeros(1, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        kernels.clahe_apply(gray, torch.zeros((1, 2, 2, 256), dtype=torch.uint8),
+                            torch.zeros((8, 3)), torch.zeros((2, 12)))
+
+
+# ---------------------------------------------------------------------------
+# the night and morph_seq kernels' plain versions against tpuimage's Pallas
+# kernels (interpreted) and its XLA paths: exact, except the CLAHE apply
+# ---------------------------------------------------------------------------
+
+def test_rgb_to_lab_ref_matches_pallas(rng):
+    x = np.concatenate([synth.night_scene(2, 40, 72),
+                        rng.integers(0, 256, (40, 72, 3), dtype=np.uint8)])
+    ours = kernels.rgb_to_lab_ref(torch.from_numpy(x), color.lab_tables_on(torch.device("cpu")))
+    np.testing.assert_array_equal(ours.numpy(),
+                                  np.asarray(rgb_to_lab_pallas(jnp.asarray(x), interpret=True)))
+    np.testing.assert_array_equal(ours.numpy(),
+                                  np.asarray(jcolor.rgb_to_lab(jnp.asarray(x), impl="xla")))
+
+
+@pytest.mark.parametrize("shape", [(128, 160), (97, 131)])
+def test_clahe_apply_ref_matches_pallas(rng, shape):
+    """Random u8-valued LUTs and tpuimage's blend matrices: max |diff| <= 1
+    on < 0.1% of pixels against clahe_apply_pallas (the f32 blend meets
+    cvRound .5 boundaries; XLA contracts into fma where the plain version
+    rounds each product)."""
+    h, w = shape
+    _, _, th, tw = histogram.clahe_geometry(h, w, 8, 8)
+    gray = rng.integers(0, 256, shape, dtype=np.uint8)
+    luts = np.sort(rng.integers(0, 256, (8, 8, 256)), axis=-1).astype(np.uint8)
+    R = jhist.clahe_blend_matrix(h, th, 8)
+    C = np.ascontiguousarray(jhist.clahe_blend_matrix(w, tw, 8).T)
+    ours = kernels.clahe_apply_ref(torch.from_numpy(gray[None]), torch.from_numpy(luts[None]),
+                                   torch.from_numpy(R), torch.from_numpy(C))[0].numpy()
+    ref = np.asarray(clahe_apply_pallas(jnp.asarray(gray), jnp.asarray(luts, jnp.float32),
+                                        jnp.asarray(R), jnp.asarray(C), th=th, tw=tw,
+                                        interpret=True))
+    diff = np.abs(ours.astype(np.int32) - ref)
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, ((diff > 0).sum(), diff.size)
+
+
+def test_blend_pairs_use_the_matrix_weights():
+    """At the borders both taps are one tile: the pair carries that
+    column's summed weight and a second weight of 0."""
+    m = torch.from_numpy(jhist.clahe_blend_matrix(100, 13, 8))
+    t1, t2, w1, w2 = kernels._blend_pairs(m)
+    rows = torch.arange(100)
+    assert torch.equal(m[rows, t1], w1)
+    assert (w2[t1 == t2] == 0).all() and (t1 == t2).any()
+    assert (t1[:6] == 0).all() and (t2[-6:] == 7).all()
+    rebuilt = torch.zeros_like(m)
+    rebuilt[rows, t1] += w1
+    rebuilt[rows, t2] += w2
+    assert torch.equal(rebuilt, m)
+
+
+@pytest.mark.parametrize("shape", [(97, 131), (33, 257)])
+def test_morph3_refs_match_pallas(rng, shape):
+    rgb = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+    gray, eroded = kernels.gray_erode3_ref(torch.from_numpy(rgb[None]))
+    rg, re = gray_erode3_pallas(jnp.asarray(rgb), interpret=True)
+    np.testing.assert_array_equal(gray[0].numpy(), np.asarray(rg))
+    np.testing.assert_array_equal(eroded[0].numpy(), np.asarray(re))
+    for t in (0.0, 117.0, 254.0):
+        binary, closed = kernels.binary_close3_ref(eroded, torch.tensor([t]))
+        rb, rc = binary_close3_pallas(jnp.asarray(eroded[0].numpy()), t, interpret=True)
+        np.testing.assert_array_equal(binary[0].numpy(), np.asarray(rb))
+        np.testing.assert_array_equal(closed[0].numpy(), np.asarray(rc))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

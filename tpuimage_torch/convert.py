@@ -1,8 +1,9 @@
 """The state carried across from tpuimage.
 
-DocScanner has no learned weights: its state is the config plus static
-tables (the Q8 Gaussian taps, the f32 adaptive-threshold taps, the Hough
-cos/sin tables and the structuring elements). The tables are built from
+No pipeline has learned weights. DocScanner's state is its config plus
+static tables (the Q8 Gaussian taps, the f32 adaptive-threshold taps, the
+Hough cos/sin tables and the structuring elements); the night paths' is
+the Lab tables and CLAHE's blend matrices. The tables are built from
 numpy exactly as tpuimage builds them.
 """
 from __future__ import annotations
@@ -11,7 +12,9 @@ import dataclasses
 
 import numpy as np
 
+from tpuimage_torch.ops.color import lab_tables
 from tpuimage_torch.ops.filters import gaussian_kernel_q8, get_gaussian_kernel
+from tpuimage_torch.ops.histogram import clahe_blend_matrix, clahe_geometry
 from tpuimage_torch.ops.hough import hough_tables
 from tpuimage_torch.pipelines.docscan import (INK_DILATE_SE, DocScanConfig,
                                               adaptive_block, blackhat_se,
@@ -42,3 +45,22 @@ def static_tables(config: DocScanConfig, page_shape=(1200, 849)) -> dict:
         "se_ink_dilate": INK_DILATE_SE,
     }
     return tables
+
+
+def night_tables(shape=(853, 1280), tiles=(8, 8)) -> dict:
+    """The static tables of the night paths on an (H, W) image with
+    ``tiles`` = (tiles_x, tiles_y): the Lab gamma and cube-root tables and
+    fixed-point coefficients, and CLAHE's tile size and blend matrices
+    R (H, ty) and C (tx, W)."""
+    h, w = shape
+    tiles_x, tiles_y = tiles
+    gamma, cbrt, coeffs = lab_tables()
+    _, _, th, tw = clahe_geometry(h, w, tiles_x, tiles_y)
+    return {
+        "lab_gamma": gamma,
+        "lab_cbrt": cbrt,
+        "lab_coeffs": coeffs,
+        "clahe_tile": (th, tw),
+        "clahe_R": clahe_blend_matrix(h, th, tiles_y),
+        "clahe_C": clahe_blend_matrix(w, tw, tiles_x).T,
+    }

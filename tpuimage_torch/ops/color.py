@@ -1,10 +1,15 @@
-"""RGB -> gray, bit-exact with OpenCV's fixed-point path (counterpart of
-``tpuimage.ops.color.rgb_to_gray``)."""
+"""Colour conversions bit-matching OpenCV's 8-bit paths (counterpart of
+``tpuimage.ops.color``): RGB -> gray, RGB -> Lab (fixed point, the
+``rgb_to_lab`` kernel on the card) and Lab -> RGB (float)."""
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from tpuimage_torch.core.dtypes import descale, i32
+from tpuimage_torch.core.dtypes import descale, f32, i32, saturate_u8
+from tpuimage_torch.ops import kernels
 
 # Y = descale(R*9798 + G*19235 + B*3735, 15), Q15 fixed point
 _R2Y15, _G2Y15, _B2Y15 = 9798, 19235, 3735
@@ -14,3 +19,89 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) uint8 RGB -> (..., H, W) uint8 gray."""
     r, g, b = i32(img[..., 0]), i32(img[..., 1]), i32(img[..., 2])
     return descale(r * _R2Y15 + g * _G2Y15 + b * _B2Y15, 15).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Lab (8-bit): gamma + cube-root tables, integer descale (color_lab.cpp)
+# ---------------------------------------------------------------------------
+_LAB_SHIFT = 12
+_GAMMA_SHIFT = 3
+_LAB_SHIFT2 = _LAB_SHIFT + _GAMMA_SHIFT
+_D65 = (0.950456, 1.0, 1.088754)
+_SRGB2XYZ_D65 = np.array([
+    [0.412453, 0.357580, 0.180423],
+    [0.212671, 0.715160, 0.072169],
+    [0.019334, 0.119193, 0.950227],
+])
+_XYZ2SRGB_F32 = np.linalg.inv(_SRGB2XYZ_D65).astype(np.float32)
+
+
+def lab_tables():
+    """(gamma (256,), cube root (3072,), coefficients (3, 3)) int64, built
+    as tpuimage's ``_lab_tables`` builds them."""
+    x = np.arange(256, dtype=np.float64) / 255.0
+    lin = np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+    gamma_tab = np.rint(lin * 255.0 * (1 << _GAMMA_SHIFT)).astype(np.int64)
+
+    n = 256 * 3 // 2 * (1 << _GAMMA_SHIFT)  # 3072
+    t = np.arange(n, dtype=np.float64) / (255.0 * (1 << _GAMMA_SHIFT))
+    fy = np.where(t < 0.008856, t * 7.787 + 16.0 / 116.0, np.cbrt(t))
+    cbrt_tab = np.rint(fy * (1 << _LAB_SHIFT2)).astype(np.int64)
+
+    scale = np.array([(1 << _LAB_SHIFT) / _D65[0],
+                      (1 << _LAB_SHIFT),
+                      (1 << _LAB_SHIFT) / _D65[2]])
+    coeffs = np.rint(_SRGB2XYZ_D65 * scale[:, None]).astype(np.int64)
+    return gamma_tab, cbrt_tab, coeffs
+
+
+@functools.lru_cache(maxsize=None)
+def lab_tables_on(device: torch.device) -> torch.Tensor:
+    """The packed int32 table the ``rgb_to_lab`` kernel takes, on ``device``."""
+    return torch.from_numpy(kernels.pack_lab_tables(*lab_tables())).to(device)
+
+
+def rgb_to_lab(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (..., 3) uint8 Lab, OpenCV's fixed-point path
+    (tpuimage's ``rgb_to_lab``)."""
+    return kernels.rgb_to_lab(img.contiguous(), lab_tables_on(img.device))
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as a true division. On a CUDA tensor PyTorch turns
+    ``tensor / python_scalar`` into a multiply by the reciprocal, which
+    rounds differently from tpuimage's divide; a device scalar keeps it a
+    division on both devices."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def _cube(t: torch.Tensor) -> torch.Tensor:
+    """``t ** 3`` as XLA evaluates it (integer_pow: t * (t * t))."""
+    return t * (t * t)
+
+
+def lab_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 Lab -> (..., 3) uint8 RGB: tpuimage's float path
+    (Lab2RGBfloat with 8-bit rescale and the sRGB gamma), op for op."""
+    lum = f32(img[..., 0]) * (100.0 / 255.0)
+    a = f32(img[..., 1]) - 128.0
+    b = f32(img[..., 2]) - 128.0
+
+    fy = _div(lum + 16.0, 116.0)
+    fx = fy + _div(a, 500.0)
+    fz = fy - _div(b, 200.0)
+
+    def finv(t):
+        t3 = _cube(t)
+        return torch.where(t3 > 0.008856, t3, _div(t - 16.0 / 116.0, 7.787))
+
+    y = torch.where(lum > 8.0, _cube(fy), _div(lum, 903.3))
+    x = finv(fx) * _D65[0]
+    z = finv(fz) * _D65[2]
+    m = [[float(v) for v in row] for row in _XYZ2SRGB_F32]
+    rgb_lin = torch.stack([m[c][0] * x + m[c][1] * y + m[c][2] * z for c in range(3)],
+                          dim=-1)
+    rgb_lin = torch.clamp(rgb_lin, 0.0, 1.0)
+    srgb = torch.where(rgb_lin <= 0.0031308, rgb_lin * 12.92,
+                       1.055 * rgb_lin ** (1.0 / 2.4) - 0.055)
+    return saturate_u8(srgb * 255.0)

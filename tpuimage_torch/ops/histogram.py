@@ -1,13 +1,26 @@
-"""256-bin histograms and Otsu (counterpart of ``tpuimage.ops.histogram``).
+"""256-bin histograms, Otsu and CLAHE (counterpart of
+``tpuimage.ops.histogram``).
 
-``hist256_batch`` is the hand-written CUDA kernel on a CUDA tensor and its
-plain ``bincount`` version on a CPU tensor (``ops.kernels``).
+``hist256_batch`` and the CLAHE apply are hand-written CUDA kernels on a
+CUDA tensor and their plain PyTorch versions on a CPU tensor
+(``ops.kernels``).
+
+CLAHE reproduces OpenCV as tpuimage does: pad to a tile multiple with
+BORDER_REFLECT_101, per-tile 256-bin histogram, integer clip with uniform
++ stepped-residual redistribution, cumulative LUT scaled by 255/tileArea
+(cvRound), then the bilinear blend of the four neighbouring tile LUTs
+through tpuimage's static blend matrices, with cvRound at the end.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
+from tpuimage_torch.core.borders import BORDER_REFLECT_101, pad2d
+from tpuimage_torch.core.dtypes import f32, saturate_u8
+from tpuimage_torch.ops import kernels
 from tpuimage_torch.ops.kernels import hist256_batch as _hist256_rows
 
 
@@ -48,3 +61,90 @@ def otsu_from_hist(hist: torch.Tensor) -> torch.Tensor:
                       torch.zeros_like(q2))
     sigma = torch.where(valid, q1 * q2 * (mu1 - mu2) ** 2, -one)
     return torch.argmax(sigma, dim=-1).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# CLAHE
+# ---------------------------------------------------------------------------
+
+def clahe_geometry(h: int, w: int, tiles_x: int, tiles_y: int):
+    """(pad_bottom, pad_right, tile_h, tile_w) of an (h, w) image. OpenCV's
+    quirk: when either dim is not divisible, BOTH are padded with
+    ``tiles - dim % tiles``, a full extra tile on a divisible dim."""
+    if h % tiles_y == 0 and w % tiles_x == 0:
+        return 0, 0, h // tiles_y, w // tiles_x
+    ph = tiles_y - (h % tiles_y)
+    pw = tiles_x - (w % tiles_x)
+    return ph, pw, (h + ph) // tiles_y, (w + pw) // tiles_x
+
+
+def tile_luts_from_counts(counts: torch.Tensor, clip_limit: float,
+                          tile_area: int) -> torch.Tensor:
+    """(T, 256) tile histograms -> (T, 256) uint8 tile LUTs: OpenCV's clip,
+    uniform + stepped-residual redistribution and CDF LUT."""
+    nbins = 256
+    hist = counts.to(torch.int64)
+    if clip_limit > 0:
+        clip = max(int(clip_limit * tile_area / nbins), 1)
+        clipped = torch.clamp(hist, max=clip)
+        excess = (hist - clipped).sum(dim=1)
+        residual = excess % nbins
+        hist = clipped + (excess // nbins)[:, None]
+        # bins k*step for k < residual, step = max(256 // residual, 1)
+        step = torch.where(residual > 0, nbins // torch.clamp(residual, min=1),
+                           torch.full_like(residual, nbins)).clamp(min=1)[:, None]
+        idx = torch.arange(nbins, device=hist.device)[None, :]
+        hist = hist + ((idx % step == 0) & (idx // step < residual[:, None]))
+    # OpenCV: lutScale = 255.0f / tileArea as an f32 divide, then sum * lutScale in f32
+    lut_scale = float(np.float32(255.0) / np.float32(tile_area))
+    return saturate_u8(f32(torch.cumsum(hist, dim=1)) * lut_scale)
+
+
+def clahe_blend_matrix(n_pix: int, tile: int, n_tiles: int) -> np.ndarray:
+    """Static (n_pix, n_tiles) bilinear tile-blend matrix (OpenCV coord
+    math: inv_t = 1.0f/tile as an f32 divide, pf = p*inv_t - 0.5f)."""
+    pf = (np.arange(n_pix, dtype=np.float32)
+          * (np.float32(1.0) / np.float32(tile)) - np.float32(0.5))
+    t1 = np.floor(pf).astype(np.int64)
+    fa = (pf - t1).astype(np.float32)
+    t1c = np.clip(t1, 0, n_tiles - 1)
+    t2c = np.clip(t1 + 1, 0, n_tiles - 1)
+    m = np.zeros((n_pix, n_tiles), dtype=np.float32)
+    m[np.arange(n_pix), t1c] += 1.0 - fa
+    m[np.arange(n_pix), t2c] += fa
+    return m
+
+
+@functools.lru_cache(maxsize=32)
+def blend_matrices_on(h: int, w: int, th: int, tw: int, tiles_y: int, tiles_x: int,
+                      device: torch.device):
+    """The blend matrices R (h, tiles_y) and C (tiles_x, w) as float32
+    tensors on ``device`` (built once per geometry)."""
+    r = torch.from_numpy(clahe_blend_matrix(h, th, tiles_y)).to(device)
+    c = torch.from_numpy(np.ascontiguousarray(clahe_blend_matrix(w, tw, tiles_x).T))
+    return r, c.to(device)
+
+
+def clahe_tiles(gray: torch.Tensor, tiles_x: int = 8, tiles_y: int = 8):
+    """(B, H, W) uint8 -> (the (B * tiles_y * tiles_x, th * tw) contiguous
+    tile rows of the padded image, th, tw)."""
+    b, h, w = gray.shape
+    ph, pw, th, tw = clahe_geometry(h, w, tiles_x, tiles_y)
+    src = pad2d(gray, 0, ph, 0, pw, mode=BORDER_REFLECT_101) if (ph or pw) else gray
+    tiles = (src.reshape(b, tiles_y, th, tiles_x, tw).permute(0, 1, 3, 2, 4)
+             .reshape(b * tiles_y * tiles_x, th * tw).contiguous())
+    return tiles, th, tw
+
+
+def clahe(gray: torch.Tensor, clip_limit: float = 40.0, tiles_x: int = 8,
+          tiles_y: int = 8) -> torch.Tensor:
+    """cv2.createCLAHE(clip_limit, (tiles_x, tiles_y)).apply on each (H, W)
+    plane of a (..., H, W) uint8 tensor: the tile histograms through the
+    ``hist256`` kernel, the apply through the ``clahe_apply`` kernel."""
+    h, w = gray.shape[-2], gray.shape[-1]
+    g = gray.reshape(-1, h, w)
+    tiles, th, tw = clahe_tiles(g, tiles_x, tiles_y)
+    luts = tile_luts_from_counts(_hist256_rows(tiles), clip_limit, th * tw)
+    r, c = blend_matrices_on(h, w, th, tw, tiles_y, tiles_x, g.device)
+    out = kernels.clahe_apply(g.contiguous(), luts.reshape(-1, tiles_y, tiles_x, 256), r, c)
+    return out.reshape(gray.shape)

@@ -1,11 +1,11 @@
 """Hand-written Hopper kernels: build, ctypes bindings, wrappers, counters.
 
 The CUDA sources in ``tpuimage_torch/csrc`` are compiled at first use by
-``nvcc -gencode arch=compute_90a,code=sm_90a`` into one shared library
-with a plain C interface under ``tpuimage_torch/_build/`` (named by a
-digest of the sources and flags, so an edited source rebuilds), then
-loaded with ``ctypes``. Nothing is built or imported when this module is
-imported.
+``nvcc -gencode arch=compute_90a,code=sm_90a``, one nvcc process per
+source, all started together, and linked into one shared library with a
+plain C interface under ``tpuimage_torch/_build/`` (named by a digest of
+the sources and flags, so an edited source rebuilds), then loaded with
+``ctypes``. Nothing is built or imported when this module is imported.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output, and then:
@@ -27,13 +27,20 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+
+from tpuimage_torch.core.dtypes import descale, saturate_u8
+from tpuimage_torch.ops.morphology import (MORPH_RECT, erode, morph_close,
+                                           structuring_element)
+from tpuimage_torch.ops.threshold import threshold_binary
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -41,7 +48,9 @@ _lib: Optional[ctypes.CDLL] = None
 build_log = ""
 
 # kernel name -> launches since the last reset_launch_counts()
-_launches: Dict[str, int] = {"hist256": 0, "hough_votes": 0}
+_launches: Dict[str, int] = {"hist256": 0, "hough_votes": 0, "rgb_to_lab": 0,
+                             "clahe_apply": 0, "gray_erode3": 0,
+                             "binary_close3": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -71,7 +80,8 @@ def _sources():
 
 def build() -> Path:
     """Compile csrc/*.cu into the shared library (once per source digest)
-    and return its path."""
+    and return its path. Each source gets its own nvcc process; all run
+    at once, then one more links the objects."""
     global build_log
     srcs = _sources()
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
@@ -83,14 +93,39 @@ def build() -> Path:
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_log = r.stdout + r.stderr
-    so.with_suffix(".log").write_text(build_log)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    procs = []
+    try:
+        for s, o in zip(srcs, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs, failed = [], []
+        for s, p in zip(srcs, procs):
+            out, _ = p.communicate(timeout=_NVCC_TIMEOUT_S)
+            logs.append(f"== nvcc {s.name}\n{out}")
+            if p.returncode != 0:
+                failed.append(s.name)
+        if not failed:
+            r = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                               capture_output=True, text=True, timeout=_NVCC_TIMEOUT_S)
+            logs.append(f"== nvcc -shared\n{r.stdout}{r.stderr}")
+            if r.returncode != 0:
+                failed.append("link")
+        build_log = "\n".join(logs)
+        so.with_suffix(".log").write_text(build_log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
+        os.replace(tmp, so)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return so
 
 
@@ -107,6 +142,14 @@ def _load() -> ctypes.CDLL:
             lib.tpuimage_hough_votes.argtypes = [p, p, p, p, p, p,
                                                  i, i, i, i, i, p]
             lib.tpuimage_hough_votes.restype = i
+            lib.tpuimage_rgb_to_lab.argtypes = [p, p, p, ll, p]
+            lib.tpuimage_rgb_to_lab.restype = i
+            lib.tpuimage_clahe_apply.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            lib.tpuimage_clahe_apply.restype = i
+            lib.tpuimage_gray_erode3.argtypes = [p, p, p, i, i, i, p]
+            lib.tpuimage_gray_erode3.restype = i
+            lib.tpuimage_binary_close3.argtypes = [p, p, p, p, i, i, i, p]
+            lib.tpuimage_binary_close3.restype = i
             _lib = lib
     return _lib
 
@@ -128,6 +171,10 @@ def _device_of(*xs: torch.Tensor) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _raise_on(rc: int, kernel: str) -> None:
@@ -161,8 +208,7 @@ def hist256_batch(x: torch.Tensor) -> torch.Tensor:
         return out
     lib = _load()
     with torch.cuda.device(dev):
-        rc = lib.tpuimage_hist256(x.data_ptr(), out.data_ptr(), b, n,
-                                  torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.tpuimage_hist256(x.data_ptr(), out.data_ptr(), b, n, _stream(dev))
     _raise_on(rc, "hist256")
     _launches["hist256"] += 1
     return out
@@ -235,8 +281,224 @@ def hough_votes(xs: torch.Tensor, ys: torch.Tensor, counts: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.tpuimage_hough_votes(
             xs.data_ptr(), ys.data_ptr(), counts.data_ptr(), cos_t.data_ptr(),
-            sin_t.data_ptr(), out.data_ptr(), b, k, numrho, t, shift,
-            torch.cuda.current_stream(dev).cuda_stream)
+            sin_t.data_ptr(), out.data_ptr(), b, k, numrho, t, shift, _stream(dev))
     _raise_on(rc, "hough_votes")
     _launches["hough_votes"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# rgb_to_lab: (..., 3) uint8 RGB -> (..., 3) uint8 Lab
+# ---------------------------------------------------------------------------
+
+LAB_GAMMA_N = 256      # sRGB gamma table entries
+LAB_CBRT_N = 3072      # cube-root table entries
+LAB_TABLES_LEN = LAB_GAMMA_N + LAB_CBRT_N + 9
+_LAB_SHIFT, _LAB_SHIFT2 = 12, 15
+_LAB_L_SCALE = (116 * 255 + 50) // 100
+_LAB_L_SHIFT = -((16 * 255 * (1 << _LAB_SHIFT2) + 50) // 100)
+
+
+def pack_lab_tables(gamma: np.ndarray, cbrt: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
+    """The one int32 table the kernel and its plain version take: gamma
+    (256) | cube root (3072) | the 3x3 fixed-point sRGB -> XYZ
+    coefficients, row-major."""
+    if gamma.shape != (LAB_GAMMA_N,) or cbrt.shape != (LAB_CBRT_N,) or coeffs.shape != (3, 3):
+        raise ValueError("pack_lab_tables: expected (256,), (3072,) and (3, 3)")
+    return np.concatenate([gamma, cbrt, coeffs.reshape(-1)]).astype(np.int32)
+
+
+def rgb_to_lab_ref(img: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch OpenCV 8-bit RGB -> Lab: the gather form of tpuimage's
+    XLA path; ``tables`` as :func:`pack_lab_tables` lays it out."""
+    gamma = tables[:LAB_GAMMA_N]
+    cbrt = tables[LAB_GAMMA_N:LAB_GAMMA_N + LAB_CBRT_N]
+    coef = tables[LAB_GAMMA_N + LAB_CBRT_N:].tolist()
+    r, g, b = (gamma[img[..., c].to(torch.int64)] for c in range(3))
+
+    def fchan(row):
+        idx = descale(r * coef[3 * row] + g * coef[3 * row + 1]
+                      + b * coef[3 * row + 2], _LAB_SHIFT)
+        return cbrt[idx.clamp(0, LAB_CBRT_N - 1).to(torch.int64)]
+
+    fx, fy, fz = fchan(0), fchan(1), fchan(2)
+    lum = descale(_LAB_L_SCALE * fy + _LAB_L_SHIFT, _LAB_SHIFT2)
+    a = descale(500 * (fx - fy) + (128 << _LAB_SHIFT2), _LAB_SHIFT2)
+    bb = descale(200 * (fy - fz) + (128 << _LAB_SHIFT2), _LAB_SHIFT2)
+    return saturate_u8(torch.stack([lum, a, bb], dim=-1))
+
+
+def rgb_to_lab(img: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """OpenCV 8-bit Lab of a (..., 3) uint8 RGB tensor (replaces
+    tpuimage's ``rgb_to_lab_pallas``); ``tables`` as
+    :func:`pack_lab_tables` lays it out, on the same device."""
+    if img.dtype != torch.uint8:
+        raise TypeError(f"rgb_to_lab: expected torch.uint8, got {img.dtype}")
+    if img.dim() < 1 or img.shape[-1] != 3:
+        raise ValueError(f"rgb_to_lab: expected (..., 3), got {tuple(img.shape)}")
+    if not img.is_contiguous():
+        raise ValueError("rgb_to_lab: tensor must be contiguous")
+    _check(tables, "tables", torch.int32, 1)
+    if tables.shape[0] != LAB_TABLES_LEN:
+        raise ValueError(f"tables: expected {LAB_TABLES_LEN} entries, got {tables.shape[0]}")
+    dev = _device_of(img, tables)
+    if dev.type == "cpu":
+        return rgb_to_lab_ref(img, tables)
+    out = torch.empty_like(img)
+    n_pix = img.numel() // 3
+    if n_pix == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_rgb_to_lab(img.data_ptr(), out.data_ptr(),
+                                     tables.data_ptr(), n_pix, _stream(dev))
+    _raise_on(rc, "rgb_to_lab")
+    _launches["rgb_to_lab"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# clahe_apply: (B, H, W) uint8 + per-image tile LUTs -> (B, H, W) uint8
+# ---------------------------------------------------------------------------
+
+def _blend_pairs(m: torch.Tensor):
+    """Rows of a (n, T) blend matrix -> the first tile with a nonzero
+    weight, the next tile (the same one at the last tile), and their
+    weights, the second 0 where both are the same tile (the kernel's
+    ``blend_pair``)."""
+    n_t = m.shape[1]
+    cols = torch.arange(n_t, device=m.device).expand_as(m)
+    t1 = torch.where(m != 0, cols, torch.full_like(cols, n_t)).amin(dim=1)
+    t1 = torch.where(t1 == n_t, torch.zeros_like(t1), t1)
+    t2 = (t1 + 1).clamp(max=n_t - 1)
+    w1 = m.gather(1, t1[:, None])[:, 0]
+    w2 = torch.where(t2 != t1, m.gather(1, t2[:, None])[:, 0], torch.zeros_like(w1))
+    return t1, t2, w1, w2
+
+
+def clahe_apply_ref(gray: torch.Tensor, luts: torch.Tensor, R: torch.Tensor,
+                    C: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch CLAHE apply: each pixel blends its four tile LUT
+    values in f32, rows (R) first and then columns (C), each product and
+    sum rounded on its own, then cvRound and clamp."""
+    b, h, w = gray.shape
+    tx = luts.shape[2]
+    r1, r2, wr1, wr2 = _blend_pairs(R)
+    c1, c2, wc1, wc2 = _blend_pairs(C.t())
+    flat = luts.reshape(b, -1).to(torch.float32)
+    v = gray.to(torch.int64).reshape(b, -1)
+
+    def lut(rt, ct):
+        base = ((rt[:, None] * tx + ct[None, :]) * 256).reshape(1, -1)
+        return flat.gather(1, base + v).reshape(b, h, w)
+
+    wr1, wr2 = wr1[:, None], wr2[:, None]
+    in1 = lut(r1, c1) * wr1 + lut(r2, c1) * wr2
+    in2 = lut(r1, c2) * wr1 + lut(r2, c2) * wr2
+    return saturate_u8(in1 * wc1 + in2 * wc2)
+
+
+def clahe_apply(gray: torch.Tensor, luts: torch.Tensor, R: torch.Tensor,
+                C: torch.Tensor) -> torch.Tensor:
+    """CLAHE apply (replaces tpuimage's ``clahe_apply_pallas``).
+
+    gray: (B, H, W) uint8; luts: (B, ty, tx, 256) uint8 tile LUTs; R:
+    (H, ty) and C: (tx, W) float32 blend matrices (``clahe_blend_matrix``).
+    Returns (B, H, W) uint8."""
+    _check(gray, "gray", torch.uint8, 3)
+    _check(luts, "luts", torch.uint8, 4)
+    _check(R, "R", torch.float32, 2)
+    _check(C, "C", torch.float32, 2)
+    b, h, w = gray.shape
+    ty, tx = luts.shape[1], luts.shape[2]
+    if luts.shape != (b, ty, tx, 256) or R.shape != (h, ty) or C.shape != (tx, w):
+        raise ValueError("clahe_apply: inconsistent shapes "
+                         f"{tuple(gray.shape)} {tuple(luts.shape)} "
+                         f"{tuple(R.shape)} {tuple(C.shape)}")
+    dev = _device_of(gray, luts, R, C)
+    if dev.type == "cpu":
+        return clahe_apply_ref(gray, luts, R, C)
+    if luts.data_ptr() % 16:
+        raise ValueError("clahe_apply: luts must be 16-byte aligned")
+    out = torch.empty_like(gray)
+    if out.numel() == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_clahe_apply(gray.data_ptr(), luts.data_ptr(), R.data_ptr(),
+                                      C.data_ptr(), out.data_ptr(), b, h, w, ty, tx,
+                                      _stream(dev))
+    _raise_on(rc, "clahe_apply")
+    _launches["clahe_apply"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# morph_seq stencils: gray_erode3 and binary_close3 on (B, H, W) planes
+# ---------------------------------------------------------------------------
+
+_SE3 = structuring_element(MORPH_RECT, 3)
+
+
+def gray_erode3_ref(rgb: torch.Tensor):
+    """Plain PyTorch ``rgb_to_gray`` and its 3x3 rect erosion."""
+    from tpuimage_torch.ops.color import rgb_to_gray
+    gray = rgb_to_gray(rgb)
+    return gray, erode(gray, _SE3)
+
+
+def gray_erode3(rgb: torch.Tensor):
+    """(B, H, W, 3) uint8 RGB -> (gray, eroded), both (B, H, W) uint8:
+    morph_seq steps 1-2 (replaces tpuimage's ``gray_erode3_pallas``)."""
+    _check(rgb, "rgb", torch.uint8, 4)
+    if rgb.shape[-1] != 3:
+        raise ValueError(f"gray_erode3: expected (B, H, W, 3), got {tuple(rgb.shape)}")
+    dev = _device_of(rgb)
+    if dev.type == "cpu":
+        return gray_erode3_ref(rgb)
+    b, h, w, _ = rgb.shape
+    gray = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
+    eroded = torch.empty_like(gray)
+    if gray.numel() == 0:
+        return gray, eroded
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_gray_erode3(rgb.data_ptr(), gray.data_ptr(), eroded.data_ptr(),
+                                      b, h, w, _stream(dev))
+    _raise_on(rc, "gray_erode3")
+    _launches["gray_erode3"] += 1
+    return gray, eroded
+
+
+def binary_close3_ref(eroded: torch.Tensor, thresh: torch.Tensor):
+    """Plain PyTorch ``threshold_binary`` (strict >) and its 3x3 rect
+    closing."""
+    binary = threshold_binary(eroded, thresh[:, None, None])
+    return binary, morph_close(binary, _SE3)
+
+
+def binary_close3(eroded: torch.Tensor, thresh: torch.Tensor):
+    """(B, H, W) uint8 and (B,) float32 thresholds -> (binary, closed),
+    both (B, H, W) uint8: morph_seq steps 3-4 (replaces tpuimage's
+    ``binary_close3_pallas``)."""
+    _check(eroded, "eroded", torch.uint8, 3)
+    _check(thresh, "thresh", torch.float32, 1)
+    if thresh.shape[0] != eroded.shape[0]:
+        raise ValueError(f"binary_close3: {thresh.shape[0]} thresholds for "
+                         f"{eroded.shape[0]} planes")
+    dev = _device_of(eroded, thresh)
+    if dev.type == "cpu":
+        return binary_close3_ref(eroded, thresh)
+    b, h, w = eroded.shape
+    binary = torch.empty_like(eroded)
+    closed = torch.empty_like(eroded)
+    if binary.numel() == 0:
+        return binary, closed
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_binary_close3(eroded.data_ptr(), thresh.data_ptr(),
+                                        binary.data_ptr(), closed.data_ptr(),
+                                        b, h, w, _stream(dev))
+    _raise_on(rc, "binary_close3")
+    _launches["binary_close3"] += 1
+    return binary, closed

@@ -18,6 +18,15 @@ def threshold_binary(gray: torch.Tensor, thresh, maxval: int = 255) -> torch.Ten
                        torch.tensor(0, dtype=torch.uint8, device=gray.device))
 
 
+def threshold_otsu(gray: torch.Tensor, maxval: int = 255):
+    """cv2.threshold(..., THRESH_BINARY + THRESH_OTSU) on each (H, W) plane
+    of a (..., H, W) uint8 tensor -> (thresholds (...,) float32, binary)."""
+    from tpuimage_torch.ops.histogram import hist256_batch, otsu_from_hist
+    lead = gray.shape[:-2]
+    t = otsu_from_hist(hist256_batch(gray.reshape((-1,) + gray.shape[-2:])))
+    return t.reshape(lead), threshold_binary(gray, t.reshape(lead + (1, 1)), maxval)
+
+
 def adaptive_threshold(gray: torch.Tensor, max_value: int = 255,
                        method: str = "gaussian", block_size: int = 35,
                        C: float = 10.0) -> torch.Tensor:

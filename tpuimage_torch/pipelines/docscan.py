@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tpuimage_torch.core.device import resolve_device
 from tpuimage_torch.detect import contours as cnt
 from tpuimage_torch.ops import geometry
 from tpuimage_torch.ops.arith import (divide_u8, max_u8, normalize_minmax,
@@ -475,9 +476,10 @@ def scan_batch(inputs, config: DocScanConfig = GUI_DOCUMENT_CONFIG,
     ``{quad, use_whole, binary, deskew_overflow}`` plus the page's
     ``deskew_angle``, or ``{error}``.
 
-    device: where the device phases run (default: ``cuda`` when
-    available, else ``cpu``). ``mesh``, ``fallback_common_shape`` and a
-    positive ``pipeline_chunk`` are not ported yet and raise
+    device: where the device phases run (default: ``cuda``; raises
+    RuntimeError when there is no CUDA device, so a caller who wants the
+    host passes ``device="cpu"``). ``mesh``, ``fallback_common_shape`` and
+    a positive ``pipeline_chunk`` are not ported yet and raise
     NotImplementedError."""
     if mesh is not None:
         raise NotImplementedError("scan_batch(mesh=...) is not ported yet")
@@ -486,9 +488,7 @@ def scan_batch(inputs, config: DocScanConfig = GUI_DOCUMENT_CONFIG,
             "scan_batch(fallback_common_shape=True) is not ported yet")
     if pipeline_chunk:
         raise NotImplementedError("scan_batch(pipeline_chunk=...) is not ported yet")
-    dev = torch.device(device if device is not None
-                       else "cuda" if torch.cuda.is_available() else "cpu")
-    state = _scan_localize(inputs, config, dev)
+    state = _scan_localize(inputs, config, resolve_device(device))
     _scan_warp(state, config)
     _scan_postwarp(state, config)
     return _scan_results(state)

@@ -1,4 +1,6 @@
-"""Seeded numpy generator of document photos (no PIL, no cv2, no torch).
+"""Seeded numpy generators of test images (no PIL, no cv2, no torch):
+document photos and pages for DocScanner and morph_seq, and night scenes
+for the night pipelines.
 
 ``document_photo`` draws a textured dark background and, optionally, a
 bright page quad under mild perspective carrying rows of dark text
@@ -155,4 +157,34 @@ def document_photo(seed: int, height: int = 1600, width: int = 1200,
         content = np.where(ink, rng.uniform(25, 60), paper)
         gray = np.where(on, content + rng.normal(0.0, 2.0, size=bg.shape), bg)
     rgb = np.stack([gray + tint[0], gray + tint[1], gray + tint[2]], axis=-1)
+    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+def night_scene(seed: int, height: int = 853, width: int = 1280) -> np.ndarray:
+    """A (height, width, 3) uint8 night landscape: a dark sky brightening
+    toward a hilly horizon, darker ground, a few bright warm lights with
+    soft glows, and sensor noise. Most pixels lie in 0-60, so CLAHE's clip
+    limit binds."""
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:height, 0:width].astype(np.float64)
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    xn = u[0] / width
+    horizon = height * (0.58 + 0.05 * np.sin(2 * np.pi * 1.3 * xn + phase[0])
+                        + 0.025 * np.sin(2 * np.pi * 3.7 * xn + phase[1])
+                        + 0.01 * np.sin(2 * np.pi * 9.1 * xn + phase[2]))
+    sky = 8.0 + 34.0 * (v / horizon[None, :]) ** 2
+    ground = 5.0 + 12.0 * _background(rng, height, width) / 75.0
+    base = np.where(v < horizon[None, :], sky, ground)
+    rgb = base[..., None] * np.array([0.8, 0.9, 1.2])
+    for _ in range(int(rng.integers(6, 12))):
+        cy = rng.uniform(0.45, 0.95) * height
+        cx = rng.uniform(0.02, 0.98) * width
+        core = rng.uniform(0.002, 0.006) * width
+        reach = int(8 * core) + 1
+        y0, y1 = max(int(cy) - reach, 0), min(int(cy) + reach, height)
+        x0, x1 = max(int(cx) - reach, 0), min(int(cx) + reach, width)
+        d2 = (v[y0:y1, x0:x1] - cy) ** 2 + (u[y0:y1, x0:x1] - cx) ** 2
+        glow = 255.0 * np.exp(-d2 / (2 * core ** 2)) + 60.0 * np.exp(-d2 / (2 * (4 * core) ** 2))
+        rgb[y0:y1, x0:x1] += glow[..., None] * np.array([1.0, 0.78, 0.45])
+    rgb += rng.normal(0.0, 3.0, size=rgb.shape)
     return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
