@@ -12,11 +12,22 @@ Phases (any failure raises and the exit code is non-zero):
    versions, and the nvcc build of tpuimage_torch/csrc/*.cu;
 2. DocScanner's kernels against their plain PyTorch versions on the card,
    at the slice's shapes (exact equality), with the median CUDA-event
-   time of one call of each (from runs of 20 calls back to back) and the
-   least time the card could take (bound);
+   time of one call of each (from runs of 20 calls back to back), the
+   least time the card could take (bound) and, where PyTorch has one
+   call or a two-call composition for the same function, its time:
+   hist256 and hough_votes, then the post-warp chain's gauss_chain
+   (divide k=43, sub k=51, adaptive block 31), gaussian_blur_u8 (k=43 and
+   51), blackhat_rect (9x19) and inkmask_weighted on 8 synthetic A4 pages
+   of 1200x849, the divide epilogue on all 65,536 pairs, and the split
+   forms of the four kernels (windows too wide for their tiles: ksize 257,
+   a 129x255 rectangle, 9 dilations), exact but not timed;
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
    documents, one with tilted text, and one with no page), with the
-   kernels' launch counters reset just before and read just after;
+   kernels' launch counters reset just before and read just after; then
+   ``_pre_deskew_stages`` on the 8 pages with torch's sync debug mode set
+   to error (a read back to the host fails), timed and profiled; then the
+   ``filters.gaussian_blur_u8`` op (cv2.GaussianBlur, which no stage of
+   ``scan_batch`` calls) on the 8 gray pages, counted as a path of its own;
 4. card against host: two of those requests again on the CPU;
 5. the night and morph_seq kernels against their plain versions, at the
    slices' shapes: rgb_to_lab and clahe_apply on 8 synthetic night scenes
@@ -59,6 +70,8 @@ NIGHT_RGB_TOL = (3, 0.001)  # card vs host night_rgb: max levels, share of value
 # f32 work of these kernels is counted at
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# the kernels _pre_deskew_stages launches, besides hist256
+PRE_DESKEW_KERNELS = ("gauss_chain", "blackhat_rect", "inkmask_weighted")
 
 
 def _nvidia_smi() -> str:
@@ -147,11 +160,9 @@ def _launched(path: str, counts: dict, needed) -> dict:
     return counts
 
 
-def _compare(name, kernel_fn, plain_fn, bound: dict) -> dict:
+def _exact(name, kernel_fn, plain_fn):
     """Hold a kernel's output (a tensor or a tuple of them) against its
-    plain version's: exact. Times both and returns the kernel's record;
-    no PyTorch call computes any of these functions alone, so there is no
-    library time."""
+    plain version's: exact. Returns the outputs and the max |diff| (0)."""
     outs, refs = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     outs = outs if isinstance(outs, tuple) else (outs,)
@@ -165,13 +176,48 @@ def _compare(name, kernel_fn, plain_fn, bound: dict) -> dict:
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain version "
                              f"(max |diff| {err})")
+    return outs, err
+
+
+def _compare(name, kernel_fn, plain_fn, bound: dict, library_fn=None) -> dict:
+    """``_exact``, then times the kernel and its plain version and returns
+    the kernel's record. ``library_fn``, where PyTorch has one call (or a
+    two-call composition) for the same function, must give the kernel's
+    first output too, and is timed as the library yardstick."""
+    outs, err = _exact(name, kernel_fn, plain_fn)
+    library_ms = None
+    if library_fn is not None:
+        lib_out = library_fn()
+        if not torch.equal(lib_out.to(torch.int64), outs[0].to(torch.int64)):
+            raise AssertionError(f"{name}: the library yardstick computes another function")
+        library_ms = _cuda_ms(library_fn, reps=5, calls=20)
     rec = {"max_abs_err": err, "ms": _cuda_ms(kernel_fn, reps=5, calls=20),
            "plain_ms": _cuda_ms(plain_fn, reps=5, calls=20),
-           **bound, "library_ms": None}
+           **bound, "library_ms": library_ms}
     print(f"{name}: shape {tuple(outs[0].shape)} exact; kernel {rec['ms']:.4f} ms, "
           f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})")
+          f"({rec['bound_by']})" + ("" if library_ms is None else
+                                   f", library {library_ms:.4f} ms"))
     return rec
+
+
+def _sub_record(rec: dict, what: str, sub: dict) -> None:
+    """Fold the record of one more shape or mode of a kernel into its
+    record under ``what``."""
+    rec["max_abs_err"] = max(rec["max_abs_err"], sub["max_abs_err"])
+    rec.update({f"{what}_{k}": sub[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+                if sub[k] is not None})
+
+
+def _conv_blur_u8(padded: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """cv2.GaussianBlur 8u as PyTorch's own convolution: two 1-D f32
+    ``conv2d`` passes over the reflect-padded plane (TF32 off, so the
+    integer sums are exact), then the Q16.16 rounding."""
+    k = taps.shape[0]
+    v = torch.nn.functional.conv2d(padded, taps.view(1, 1, k, 1))
+    acc = torch.nn.functional.conv2d(v, taps.view(1, 1, 1, k))
+    return torch.clamp(torch.floor((acc + 32768.0) * (1.0 / 65536.0)), 0, 255
+                       ).to(torch.uint8)[:, 0]
 
 
 def main() -> int:
@@ -180,8 +226,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from tpuimage_torch import synth
-    from tpuimage_torch.ops import color, edges, histogram, hough, kernels, median
+    from tpuimage_torch.core.borders import pad2d
+    from tpuimage_torch.ops import color, edges, filters, histogram, hough, kernels, median
     from tpuimage_torch.ops.color import rgb_to_gray
+    from tpuimage_torch.ops.filters import gaussian_kernel_q8
     from tpuimage_torch.pipelines import docscan, morphseq, night
 
     dev = torch.device("cuda")
@@ -212,10 +260,15 @@ def main() -> int:
                         torch.randint(0, 256, (1, n), generator=gen, device=dev,
                                       dtype=torch.uint8),
                         torch.full((1, n), 255, dtype=torch.uint8, device=dev)])
+    offset_rows = (planes.to(torch.int64) + 256 * torch.arange(
+        planes.shape[0], device=dev)[:, None]).reshape(-1)
     records = {"hist256": _compare(
         f"hist256 (sub_raw/bh_raw planes of {N_REQUESTS} A4 pages + random + constant)",
         lambda: kernels.hist256_batch(planes), lambda: kernels.hist256_batch_ref(planes),
-        _hist256_bound(planes))}
+        _hist256_bound(planes),
+        lambda: torch.bincount(offset_rows, minlength=planes.shape[0] * 256
+                               ).view(planes.shape[0], 256))}
+    del offset_rows
 
     weighted = docscan._pre_deskew_stages(pages_d, cfg)["weighted"]
     deskew_edges = edges.canny(weighted, cfg.canny_low, cfg.canny_high)
@@ -245,6 +298,85 @@ def main() -> int:
         "localize_bound_ms": hough_recs[1]["bound_ms"]}
     del planes, weighted, deskew_edges, photo_edges
 
+    # the post-warp chain's kernels on the 8 pages, at the path's sizes
+    gray_d = rgb_to_gray(pages_d)
+    n_px = N_REQUESTS * n
+    ik, mk, ab = docscan.illum_ksize(*PAGE, cfg), docscan.mask_ksize(cfg), \
+        docscan.adaptive_block(cfg)
+    # per pass and pixel, over the symmetric taps: Q8.8 r pair adds and
+    # r + 1 multiply-adds; adaptive 1 + 3r (the centre product, then per
+    # pair its add, the product and the accumulating add)
+    q8_bound = lambda k: _bound(2 * n_px + 4 * k, 2 * (2 + 3 * (k // 2)) * n_px)  # noqa: E731
+    adaptive_bound = _bound(2 * n_px + 4 * ab, 2 * (1 + 3 * (ab // 2)) * n_px)
+    chain = {}
+    for what, x, k, mode, C, bound in (("divide", gray_d, ik, "divide", 0.0, q8_bound(ik)),
+                                        ("sub", stretched, mk, "sub", 0.0, q8_bound(mk)),
+                                        ("adaptive", stretched, ab, "adaptive", cfg.C,
+                                         adaptive_bound)):
+        chain[what] = _compare(
+            f"gauss_chain {mode} k={k} ({N_REQUESTS} A4 planes {PAGE[1]}x{PAGE[0]})",
+            lambda x=x, k=k, mode=mode, C=C: kernels.gauss_chain(x, k, mode, C),
+            lambda x=x, k=k, mode=mode, C=C: kernels.gauss_chain_ref(x, k, mode, C), bound)
+    records["gauss_chain"] = chain["divide"]
+    for what in ("sub", "adaptive"):
+        _sub_record(records["gauss_chain"], what, chain[what])
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    blur = {}
+    for x, k in ((gray_d, ik), (stretched, mk)):
+        padded = pad2d(x.to(torch.float32), k // 2, k // 2, k // 2, k // 2)[:, None]
+        taps = torch.from_numpy(gaussian_kernel_q8(k).astype(np.float32)).to(dev)
+        blur[k] = _compare(
+            f"gaussian_blur_u8 k={k} ({N_REQUESTS} A4 planes {PAGE[1]}x{PAGE[0]}; library: "
+            f"two cudnn conv2d 1-D passes + rounding)",
+            lambda x=x, k=k: kernels.gaussian_blur_u8(x, k),
+            lambda x=x, k=k: kernels.gaussian_blur_u8_ref(x, k), q8_bound(k),
+            lambda padded=padded, taps=taps: _conv_blur_u8(padded, taps))
+        del padded
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    records["gaussian_blur_u8"] = blur[ik]
+    _sub_record(records["gaussian_blur_u8"], f"k{mk}", blur[mk])
+    bk_h, bk_w = docscan.blackhat_se(cfg).shape
+    # four 1-D extremes of ~3 compares per pixel (van Herk), the subtract and clamp
+    records["blackhat_rect"] = _compare(
+        f"blackhat_rect {bk_w}x{bk_h} ({N_REQUESTS} stretched A4 planes)",
+        lambda: kernels.blackhat_rect(stretched, bk_w, bk_h),
+        lambda: kernels.blackhat_rect_ref(stretched, bk_w, bk_h),
+        _bound(2 * n_px, 14 * n_px))
+    hists = kernels.hist256_batch(torch.stack([sub_raw, bh_raw], dim=1)
+                                  .reshape(2 * N_REQUESTS, -1)).reshape(-1, 2, 256)
+    t_sub = docscan._raw_otsu_threshold(hists[:, 0], cfg.mask_thresh_offset)
+    t_bh = docscan._raw_otsu_threshold(hists[:, 1], cfg.mask_thresh_offset)
+    adapt = kernels.gauss_chain(stretched, ab, "adaptive", cfg.C)
+    it = cfg.ink_dilate_iters
+    # two compares and their or, 2 * iters maxima (separable), the select
+    records["inkmask_weighted"] = _compare(
+        f"inkmask_weighted iters={it} ({N_REQUESTS} A4 planes, thresholds "
+        f"{t_sub.tolist()} / {t_bh.tolist()})",
+        lambda: kernels.inkmask_weighted(sub_raw, bh_raw, adapt, t_sub, t_bh, it),
+        lambda: kernels.inkmask_weighted_ref(sub_raw, bh_raw, adapt, t_sub, t_bh, it),
+        _bound(5 * n_px + 8 * N_REQUESTS, (4 + 2 * it) * n_px))
+    if not torch.equal(kernels.divide_table(dev).cpu(), kernels.divide_table("cpu")):
+        raise AssertionError("the divide epilogue differs from divide_u8 on the card")
+    print("divide epilogue: all 65,536 (num, den) pairs equal divide_u8")
+    # the split forms, for windows too wide for the kernels' tiles
+    two = stretched[:2].contiguous()
+    wide = (("gaussian_blur_u8 k=257", lambda: kernels.gaussian_blur_u8(two, 257),
+             lambda: kernels.gaussian_blur_u8_ref(two, 257)),
+            ("gauss_chain sub k=257", lambda: kernels.gauss_chain(two, 257, "sub"),
+             lambda: kernels.gauss_chain_ref(two, 257, "sub")),
+            ("gauss_chain adaptive k=257", lambda: kernels.gauss_chain(two, 257, "adaptive", 3.0),
+             lambda: kernels.gauss_chain_ref(two, 257, "adaptive", 3.0)),
+            ("blackhat_rect 129x255", lambda: kernels.blackhat_rect(two, 129, 255),
+             lambda: kernels.blackhat_rect_ref(two, 129, 255)),
+            ("inkmask_weighted iters=9",
+             lambda: kernels.inkmask_weighted(sub_raw, bh_raw, adapt, t_sub, t_bh, 9),
+             lambda: kernels.inkmask_weighted_ref(sub_raw, bh_raw, adapt, t_sub, t_bh, 9)))
+    for what, kernel_fn, plain_fn in wide:
+        _exact(what, kernel_fn, plain_fn)
+        print(f"{what} (split form, 2 or 8 A4 planes): exact")
+    del gray_d, sub_raw, bh_raw, adapt, hists, two
+
     # --- 3. the main path ----------------------------------------------------
     tilted = 1
     inputs = [synth.document_photo(300 + i, *PHOTO,
@@ -257,7 +389,8 @@ def main() -> int:
     kernels.reset_launch_counts()
     results = docscan.scan_batch(inputs, cfg, device=dev)
     torch.cuda.synchronize()
-    launches = _launched("scan_batch", kernels.launch_counts(), ("hist256", "hough_votes"))
+    launches = _launched("scan_batch", kernels.launch_counts(),
+                         ("hist256", "hough_votes") + PRE_DESKEW_KERNELS)
     for i, r in enumerate(results):
         if "binary" not in r:
             raise AssertionError(f"request {i} failed: {r}")
@@ -304,6 +437,39 @@ def main() -> int:
     _print_profile("docscan_post_warp_batch", pw_ms,
                    lambda: docscan.docscan_post_warp_batch(pages_d, cfg))
     del stack
+
+    # _pre_deskew_stages reads nothing back to the host: any synchronizing
+    # call (a device-to-host copy, .item(), nonzero) raises here
+    pre_fn = lambda: docscan._pre_deskew_stages(pages_d, cfg)  # noqa: E731
+    pre_fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pre_fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pre_ms = _cuda_ms(pre_fn, reps=5, calls=5)
+    print(f"_pre_deskew_stages: {pre_ms:.3f} ms per batch of {N_REQUESTS} A4 pages (CUDA "
+          "events, median of 5 runs of 5 calls); ran under "
+          "torch.cuda.set_sync_debug_mode('error'): no read back to the host")
+    _print_profile("_pre_deskew_stages", pre_ms, pre_fn)
+
+    # the cv2.GaussianBlur op, a path of its own: what tpuimage's other
+    # pipelines call (no stage of scan_batch does)
+    gray_pages = rgb_to_gray(pages_d)
+    filters.gaussian_blur_u8(gray_pages, ksize=ik)                 # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    blurred = filters.gaussian_blur_u8(gray_pages, ksize=ik)
+    torch.cuda.synchronize()
+    for k, v in _launched("filters.gaussian_blur_u8", kernels.launch_counts(),
+                          ("gaussian_blur_u8",)).items():
+        launches[k] += v
+    if not torch.equal(blurred, kernels.gaussian_blur_u8_ref(gray_pages, ik)):
+        raise AssertionError("filters.gaussian_blur_u8 differs from its plain version")
+    print(f"filters.gaussian_blur_u8 k={ik}: {tuple(blurred.shape)} uint8, equal to the "
+          "plain version")
+    del gray_pages, blurred
 
     # --- 4. card against host -----------------------------------------------
     pick = [0, tilted]
@@ -452,7 +618,15 @@ def main() -> int:
                "gray_erode3": ("tpuimage_torch/csrc/morph3.cu",
                                "tpuimage/ops/pallas_kernels.py:1781"),
                "binary_close3": ("tpuimage_torch/csrc/morph3.cu",
-                                 "tpuimage/ops/pallas_kernels.py:1809")}
+                                 "tpuimage/ops/pallas_kernels.py:1809"),
+               "gaussian_blur_u8": ("tpuimage_torch/csrc/gauss_sep.cu",
+                                    "tpuimage/ops/pallas_kernels.py:187"),
+               "gauss_chain": ("tpuimage_torch/csrc/gauss_sep.cu",
+                               "tpuimage/ops/pallas_kernels.py:1330"),
+               "blackhat_rect": ("tpuimage_torch/csrc/blackhat_rect.cu",
+                                 "tpuimage/ops/pallas_kernels.py:1465"),
+               "inkmask_weighted": ("tpuimage_torch/csrc/inkmask.cu",
+                                    "tpuimage/ops/pallas_kernels.py:1560")}
     kernel_line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **records[name]}

@@ -9,6 +9,7 @@ warp forms to.
 """
 import dataclasses
 import functools
+import math
 import os
 import subprocess
 import sys
@@ -74,6 +75,11 @@ def test_static_tables_match_tpuimage():
     np.testing.assert_array_equal(tab["mask_taps_q8"], jfilters.gaussian_kernel_q8(51))
     np.testing.assert_array_equal(tab["adaptive_taps_f32"],
                                   jfilters.get_gaussian_kernel(31).astype(np.float32))
+    # gauss_chain_pallas's own construction of its adaptive offset
+    for cfg in (tdoc.GUI_DOCUMENT_CONFIG, tdoc.DocScanConfig(), dataclasses.replace(
+            tdoc.GUI_DOCUMENT_CONFIG, C=2.5)):
+        assert convert.static_tables(cfg)["adaptive_idelta"] == math.ceil(cfg.C)
+    assert tab["adaptive_idelta"] == 3
     thetas = np.arange(180) * (np.pi / 180)        # hough.py / pallas_kernels.py
     np.testing.assert_array_equal(tab["hough_cos"], np.cos(thetas).astype(np.float32))
     np.testing.assert_array_equal(tab["hough_sin"], np.sin(thetas).astype(np.float32))

@@ -14,8 +14,10 @@ import torch
 from tpuimage.ops import color as jcolor
 from tpuimage.ops import histogram as jhist
 from tpuimage.ops import hough as jhough
-from tpuimage.ops.pallas_kernels import (binary_close3_pallas, clahe_apply_pallas,
-                                         gray_erode3_pallas, hist256_batch_pallas,
+from tpuimage.ops.pallas_kernels import (binary_close3_pallas, blackhat_rect_pallas,
+                                         clahe_apply_pallas, gauss_chain_pallas,
+                                         gaussian_blur_u8_pallas, gray_erode3_pallas,
+                                         hist256_batch_pallas, inkmask_weighted_pallas,
                                          rgb_to_lab_pallas)
 
 from tpuimage_torch import synth
@@ -105,9 +107,23 @@ def test_wrappers_check_inputs_and_count_only_launches():
     kernels.binary_close3(eroded, torch.zeros(1))
     kernels.clahe_apply(gray, torch.zeros((1, 2, 2, 256), dtype=torch.uint8),
                         torch.zeros((8, 2)), torch.zeros((2, 12)))
+    planes = torch.zeros((2, 9, 11), dtype=torch.uint8)
+    kernels.gaussian_blur_u8(planes, 5)
+    for mode in kernels.GAUSS_CHAIN_MODES:
+        kernels.gauss_chain(planes, 5, mode, 3.0)
+    kernels.blackhat_rect(planes, 3, 5)
+    t2 = torch.zeros(2)
+    kernels.inkmask_weighted(planes, planes, planes, t2, t2, 1)
+    # sizes past the tiled forms take the kernels' split forms on a card
+    kernels.gaussian_blur_u8(planes, 257)
+    kernels.blackhat_rect(planes, 129, 255)
+    kernels.inkmask_weighted(planes, planes, planes, t2, t2, 9)
+    kernels.divide_table("cpu")
     assert kernels.launch_counts() == {"hist256": 0, "hough_votes": 0, "rgb_to_lab": 0,
                                        "clahe_apply": 0, "gray_erode3": 0,
-                                       "binary_close3": 0}
+                                       "binary_close3": 0, "gaussian_blur_u8": 0,
+                                       "gauss_chain": 0, "blackhat_rect": 0,
+                                       "inkmask_weighted": 0}
     with pytest.raises(TypeError):
         kernels.hist256_batch(x.to(torch.int32))
     with pytest.raises(ValueError):
@@ -142,6 +158,35 @@ def test_wrappers_check_inputs_and_count_only_launches():
     with pytest.raises(ValueError):
         kernels.clahe_apply(gray, torch.zeros((1, 2, 2, 256), dtype=torch.uint8),
                             torch.zeros((8, 3)), torch.zeros((2, 12)))
+    # the post-warp chain's wrappers: dtype, rank, contiguity, sizes, modes
+    with pytest.raises(TypeError):
+        kernels.gaussian_blur_u8(planes.to(torch.int32), 5)
+    with pytest.raises(ValueError):
+        kernels.gaussian_blur_u8(planes[0], 5)
+    with pytest.raises(ValueError):
+        kernels.gauss_chain(planes.transpose(1, 2), 5, "sub")
+    for bad in (4, 0, -3):
+        with pytest.raises(ValueError):
+            kernels.gaussian_blur_u8(planes, bad)
+    with pytest.raises(ValueError):
+        kernels.gauss_chain(planes, 5, "none")
+    with pytest.raises(ValueError):
+        kernels.blackhat_rect(planes, 2, 5)
+    with pytest.raises(ValueError):
+        kernels.blackhat_rect(planes, 3, -1)
+    with pytest.raises(TypeError):
+        kernels.blackhat_rect(planes.to(torch.float32), 3, 5)
+    with pytest.raises(ValueError):
+        kernels.inkmask_weighted(planes, planes, planes, t2, t2, -1)
+    with pytest.raises(ValueError):
+        kernels.inkmask_weighted(planes, planes[:, :8].contiguous(), planes, t2, t2, 1)
+    with pytest.raises(ValueError):
+        kernels.inkmask_weighted(planes, planes, planes, torch.zeros(3), t2, 1)
+    with pytest.raises(TypeError):
+        kernels.inkmask_weighted(planes, planes, planes, t2.to(torch.int32), t2, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.blackhat_rect(planes.to("meta"), 3, 5)
+    assert not any(kernels.launch_counts().values())
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +252,76 @@ def test_morph3_refs_match_pallas(rng, shape):
         rb, rc = binary_close3_pallas(jnp.asarray(eroded[0].numpy()), t, interpret=True)
         np.testing.assert_array_equal(binary[0].numpy(), np.asarray(rb))
         np.testing.assert_array_equal(closed[0].numpy(), np.asarray(rc))
+
+
+# ---------------------------------------------------------------------------
+# the post-warp chain's plain versions against tpuimage's Pallas kernels,
+# interpreted, at tiny shapes: exact
+# ---------------------------------------------------------------------------
+
+def _tie_image(h, w):
+    """A checkerboard of 100 and 101, whose Gaussian mean is 100.5 up to f32
+    rounding (every cvRound on a tie), beside a plateau and a ramp."""
+    yy, xx = np.mgrid[:h, :w]
+    img = (100 + (yy + xx) % 2).astype(np.uint8)
+    img[:, w // 2:] = 37
+    img[h // 2:, w // 2:] = (xx[h // 2:, w // 2:] * 7 % 256).astype(np.uint8)
+    return img
+
+
+def _chain_inputs(rng, shape):
+    """A crop of a synthetic page's gray plane, random bytes, and the tie
+    image, each (H, W) uint8."""
+    page = synth.page(31, 64, 64, rules=3)[..., 1]
+    return [np.ascontiguousarray(page[:shape[0], :shape[1]]),
+            rng.integers(0, 256, shape, dtype=np.uint8), _tie_image(*shape)]
+
+
+@pytest.mark.parametrize("shape", [(40, 60), (17, 23)])
+@pytest.mark.parametrize("mode,ksize,C", [("divide", 15, 0.0), ("subtract", 15, 0.0),
+                                          ("sub", 15, 0.0), ("adaptive", 7, 2.5),
+                                          ("adaptive", 7, 3.0), ("adaptive", 31, 3.0),
+                                          ("adaptive", 31, 2.5), ("adaptive", 31, 0.0)])
+def test_gauss_chain_ref_matches_pallas(rng, shape, mode, ksize, C):
+    for x in _chain_inputs(rng, shape):
+        ours = kernels.gauss_chain(torch.from_numpy(x[None]), ksize, mode, C)[0].numpy()
+        ref = gauss_chain_pallas(jnp.asarray(x), ksize, mode, C=C, interpret=True)
+        np.testing.assert_array_equal(ours, np.asarray(ref))
+
+
+@pytest.mark.parametrize("shape", [(40, 60), (17, 23)])
+def test_gaussian_blur_u8_ref_matches_pallas(rng, shape):
+    for x in _chain_inputs(rng, shape):
+        ours = kernels.gaussian_blur_u8(torch.from_numpy(x[None]), 15)[0].numpy()
+        np.testing.assert_array_equal(
+            ours, np.asarray(gaussian_blur_u8_pallas(jnp.asarray(x), 15, interpret=True)))
+
+
+@pytest.mark.parametrize("shape", [(40, 60), (17, 23)])
+@pytest.mark.parametrize("kw,kh", [(9, 19), (7, 5)])
+def test_blackhat_rect_ref_matches_pallas(rng, shape, kw, kh):
+    for x in _chain_inputs(rng, shape):
+        ours = kernels.blackhat_rect(torch.from_numpy(x[None]), kw, kh)[0].numpy()
+        np.testing.assert_array_equal(
+            ours, np.asarray(blackhat_rect_pallas(jnp.asarray(x), kw, kh, interpret=True)))
+
+
+@pytest.mark.parametrize("shape", [(40, 60), (17, 23)])
+@pytest.mark.parametrize("iters", [0, 1, 3])
+def test_inkmask_weighted_ref_matches_pallas(rng, shape, iters):
+    sparse = np.where(rng.random(shape) < 0.9, 0,
+                      rng.integers(1, 256, shape)).astype(np.uint8)
+    sub, bh = sparse, rng.integers(0, 40, shape, dtype=np.uint8)
+    adapt = (rng.random(shape) < 0.5).astype(np.uint8) * 255
+    for ts, tb in ((20.0, 30.0), (-1.0, 255.0), (255.0, 0.0)):
+        mask, weighted = kernels.inkmask_weighted(
+            *(torch.from_numpy(a[None]) for a in (sub, bh, adapt)),
+            torch.tensor([ts]), torch.tensor([tb]), iters)
+        ref_mask, ref_weighted = inkmask_weighted_pallas(
+            jnp.asarray(sub), jnp.asarray(bh), jnp.asarray(adapt), ts, tb, iters=iters,
+            interpret=True)
+        np.testing.assert_array_equal(mask[0].numpy(), np.asarray(ref_mask))
+        np.testing.assert_array_equal(weighted[0].numpy(), np.asarray(ref_weighted))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,14 +1,16 @@
 """The state carried across from tpuimage.
 
 No pipeline has learned weights. DocScanner's state is its config plus
-static tables (the Q8 Gaussian taps, the f32 adaptive-threshold taps, the
-Hough cos/sin tables and the structuring elements); the night paths' is
+static tables (the Q8 Gaussian taps, the f32 adaptive-threshold taps and
+its integer offset, the Hough cos/sin tables and the structuring
+elements); the night paths' is
 the Lab tables and CLAHE's blend matrices. The tables are built from
 numpy exactly as tpuimage builds them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -39,6 +41,7 @@ def static_tables(config: DocScanConfig, page_shape=(1200, 849)) -> dict:
         "illum_taps_q8": gaussian_kernel_q8(illum_ksize(*page_shape, config)),
         "mask_taps_q8": gaussian_kernel_q8(mask_ksize(config)),
         "adaptive_taps_f32": get_gaussian_kernel(adaptive_block(config)).astype(np.float32),
+        "adaptive_idelta": math.ceil(config.C),
         "hough_cos": cos_t,
         "hough_sin": sin_t,
         "se_blackhat": blackhat_se(config),

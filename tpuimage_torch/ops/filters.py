@@ -87,13 +87,28 @@ def _sepconv_valid_f32(padded: torch.Tensor, kx, ky) -> torch.Tensor:
 def gaussian_blur_u8(img: torch.Tensor, ksize: int = 0, sigma: float = 0.0,
                      border: str = BORDER_REFLECT_101) -> torch.Tensor:
     """cv2.GaussianBlur on each uint8 (H, W) plane, bit-exact (Q8.8 taps,
-    Q16.16 accumulator, round half up). ksize == 0 derives it from sigma."""
+    Q16.16 accumulator, round half up). ksize == 0 derives it from sigma.
+
+    On a CUDA uint8 tensor with the reflect-101 border this is the
+    ``gaussian_blur_u8`` kernel (``ops.kernels``); elsewhere the plain
+    separable form below."""
     if ksize <= 0:
         if sigma <= 0:
             return img
         ksize = gaussian_ksize_from_sigma(sigma)
     if ksize == 1:
         return img
+    if img.is_cuda and img.dtype == torch.uint8 and border == BORDER_REFLECT_101:
+        from tpuimage_torch.ops import kernels   # kernels imports this module
+        planes = img.reshape((-1,) + tuple(img.shape[-2:])).contiguous()
+        return kernels.gaussian_blur_u8(planes, ksize, sigma).reshape(img.shape)
+    return gaussian_blur_u8_plain(img, ksize, sigma, border)
+
+
+def gaussian_blur_u8_plain(img: torch.Tensor, ksize: int, sigma: float = 0.0,
+                           border: str = BORDER_REFLECT_101) -> torch.Tensor:
+    """The plain PyTorch form of :func:`gaussian_blur_u8` for a resolved
+    odd ``ksize``: the Q8.8 taps as exact integers in f32."""
     k = gaussian_kernel_q8(ksize, sigma).astype(np.float32)
     r = ksize // 2
     p = pad2d(f32(img), r, r, r, r, mode=border)

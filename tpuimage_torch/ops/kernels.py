@@ -19,7 +19,9 @@ There is no fallback from a failed build or launch to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -31,9 +33,12 @@ import numpy as np
 import torch
 
 from tpuimage_torch.core.dtypes import descale, saturate_u8
-from tpuimage_torch.ops.morphology import (MORPH_RECT, erode, morph_close,
-                                           structuring_element)
-from tpuimage_torch.ops.threshold import threshold_binary
+from tpuimage_torch.ops.arith import divide_u8, max_u8, subtract_u8
+from tpuimage_torch.ops.filters import (gaussian_blur_u8_plain, gaussian_kernel_q8,
+                                        get_gaussian_kernel)
+from tpuimage_torch.ops.morphology import (MORPH_RECT, dilate, erode, morph_blackhat_plain,
+                                           morph_close, structuring_element)
+from tpuimage_torch.ops.threshold import adaptive_threshold, threshold_binary
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,7 +55,9 @@ build_log = ""
 # kernel name -> launches since the last reset_launch_counts()
 _launches: Dict[str, int] = {"hist256": 0, "hough_votes": 0, "rgb_to_lab": 0,
                              "clahe_apply": 0, "gray_erode3": 0,
-                             "binary_close3": 0}
+                             "binary_close3": 0, "gaussian_blur_u8": 0,
+                             "gauss_chain": 0, "blackhat_rect": 0,
+                             "inkmask_weighted": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -150,6 +157,20 @@ def _load() -> ctypes.CDLL:
             lib.tpuimage_gray_erode3.restype = i
             lib.tpuimage_binary_close3.argtypes = [p, p, p, p, i, i, i, p]
             lib.tpuimage_binary_close3.restype = i
+            lib.tpuimage_gauss_sep.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+            lib.tpuimage_gauss_sep.restype = i
+            lib.tpuimage_gauss_sep_scratch.argtypes = [i, i, i, i]
+            lib.tpuimage_gauss_sep_scratch.restype = ll
+            lib.tpuimage_divide_table.argtypes = [p, p]
+            lib.tpuimage_divide_table.restype = i
+            lib.tpuimage_blackhat_rect.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.tpuimage_blackhat_rect.restype = i
+            lib.tpuimage_blackhat_rect_scratch.argtypes = [i, i, i, i, i]
+            lib.tpuimage_blackhat_rect_scratch.restype = ll
+            lib.tpuimage_inkmask_weighted.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+            lib.tpuimage_inkmask_weighted.restype = i
+            lib.tpuimage_inkmask_scratch.argtypes = [i, i, i, i]
+            lib.tpuimage_inkmask_scratch.restype = ll
             _lib = lib
     return _lib
 
@@ -502,3 +523,207 @@ def binary_close3(eroded: torch.Tensor, thresh: torch.Tensor):
     _raise_on(rc, "binary_close3")
     _launches["binary_close3"] += 1
     return binary, closed
+
+
+# ---------------------------------------------------------------------------
+# the post-warp chain on (B, H, W) uint8 planes: gaussian_blur_u8 and
+# gauss_chain (one CUDA template, csrc/gauss_sep.cu), blackhat_rect and
+# inkmask_weighted. Each kernel has a tiled form and, for windows too wide
+# for a block's shared memory, a split form that passes through device
+# scratch; the C side says how many bytes of it a call needs.
+# ---------------------------------------------------------------------------
+
+GAUSS_CHAIN_MODES = ("divide", "subtract", "sub", "adaptive")
+_GAUSS_MODE_IDS = {"none": 0, "divide": 1, "subtract": 2, "sub": 3, "adaptive": 4}
+_SE_INK = structuring_element(MORPH_RECT, (2, 2))
+
+
+def _scratch(dev: torch.device, nbytes: int) -> Optional[int]:
+    """The address of ``nbytes`` of device scratch for a split form, or
+    None (a null pointer) for the tiled form. The caching allocator keeps
+    the buffer in stream order, so it may be dropped once launched."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev).data_ptr() if nbytes else None
+
+
+@functools.lru_cache(maxsize=None)
+def _gauss_taps(ksize: int, sigma: float, kind: str, device: str) -> torch.Tensor:
+    """The kernel's taps on ``device``, made once per (ksize, sigma, kind,
+    device): OpenCV's Q8.8 integers (``kind="q8"``) or the f32 taps of
+    the adaptive mean (``"f32"``), so a call copies nothing to the card."""
+    if kind == "q8":
+        return torch.from_numpy(gaussian_kernel_q8(ksize, sigma).astype(np.int32)).to(device)
+    taps = get_gaussian_kernel(ksize, sigma).astype(np.float32)
+    if not np.array_equal(taps, taps[::-1]):
+        raise ValueError("the adaptive mean's taps must be symmetric")
+    return torch.from_numpy(taps).to(device)
+
+
+def _check_ksize(name: str, ksize: int) -> None:
+    if not (ksize >= 1 and ksize % 2 == 1):
+        raise ValueError(f"{name}: ksize must be odd and positive, got {ksize}")
+
+
+def _gauss_launch(name: str, x: torch.Tensor, ksize: int, sigma: float, mode: str,
+                  idelta: int) -> torch.Tensor:
+    dev = x.device
+    b, h, w = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    taps = _gauss_taps(ksize, float(sigma), "f32" if mode == "adaptive" else "q8", str(dev))
+    lib = _load()
+    with torch.cuda.device(dev):
+        scratch = _scratch(dev, lib.tpuimage_gauss_sep_scratch(b, h, w, ksize))
+        rc = lib.tpuimage_gauss_sep(x.data_ptr(), taps.data_ptr(), out.data_ptr(), scratch,
+                                    b, h, w, ksize, _GAUSS_MODE_IDS[mode], idelta,
+                                    _stream(dev))
+    _raise_on(rc, name)
+    _launches[name] += 1
+    return out
+
+
+def gaussian_blur_u8_ref(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch cv2.GaussianBlur 8u, reflect-101 border
+    (``filters.gaussian_blur_u8``'s plain form)."""
+    return gaussian_blur_u8_plain(x, ksize, sigma)
+
+
+def gaussian_blur_u8(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """cv2.GaussianBlur 8u of each plane of a (B, H, W) uint8 tensor with
+    the reflect-101 border and an odd ksize (replaces tpuimage's
+    ``gaussian_blur_u8_pallas``)."""
+    _check(x, "gaussian_blur_u8", torch.uint8, 3)
+    _check_ksize("gaussian_blur_u8", ksize)
+    if _device_of(x).type == "cpu":
+        return gaussian_blur_u8_ref(x, ksize, sigma)
+    return _gauss_launch("gaussian_blur_u8", x, ksize, sigma, "none", 0)
+
+
+def gauss_chain_ref(x: torch.Tensor, ksize: int, mode: str, C: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch Gaussian and its consumer: the Q8.8 blur, then
+    ``divide_u8(x, blur, 255)``, ``subtract_u8(x, blur)`` or
+    ``subtract_u8(blur, x)``; or ``adaptive_threshold(x, 255, "gaussian",
+    ksize, C)``."""
+    if mode == "adaptive":
+        return adaptive_threshold(x, 255, "gaussian", ksize, C)
+    blur = gaussian_blur_u8_ref(x, ksize)
+    if mode == "divide":
+        return divide_u8(x, blur, scale=255)
+    if mode == "subtract":
+        return subtract_u8(x, blur)
+    if mode == "sub":
+        return subtract_u8(blur, x)
+    raise ValueError(f"gauss_chain: unknown mode {mode!r}")
+
+
+def gauss_chain(x: torch.Tensor, ksize: int, mode: str, C: float = 0.0) -> torch.Tensor:
+    """A Gaussian of each plane of a (B, H, W) uint8 tensor fused with the
+    post-warp stage that consumes it (replaces tpuimage's
+    ``gauss_chain_pallas``). ``mode``: "divide" / "subtract" (illumination)
+    and "sub" (ink background) on the Q8.8 blur with a reflect-101 border;
+    "adaptive" is cv2.adaptiveThreshold GAUSSIAN_C with block ``ksize``,
+    constant ``C`` and a replicate border."""
+    _check(x, "gauss_chain", torch.uint8, 3)
+    _check_ksize("gauss_chain", ksize)
+    if mode not in GAUSS_CHAIN_MODES:
+        raise ValueError(f"gauss_chain: mode must be one of {GAUSS_CHAIN_MODES}, got {mode!r}")
+    if _device_of(x).type == "cpu":
+        return gauss_chain_ref(x, ksize, mode, C)
+    return _gauss_launch("gauss_chain", x, ksize, 0.0, mode,
+                         math.ceil(C) if mode == "adaptive" else 0)
+
+
+def divide_table(device) -> torch.Tensor:
+    """(256, 256) uint8: the divide epilogue of every (num, den) pair,
+    ``[num, den]``. On a card it is computed by the gauss_chain kernel's
+    own device function, in a launch of its own that no counter counts;
+    on the CPU by ``divide_u8``."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        v = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+        return divide_u8(v[:, None].expand(256, 256), v[None, :].expand(256, 256), scale=255)
+    out = torch.empty((256, 256), dtype=torch.uint8, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_divide_table(out.data_ptr(), _stream(dev))
+    _raise_on(rc, "divide_table")
+    return out
+
+
+def blackhat_rect_ref(x: torch.Tensor, kw: int, kh: int) -> torch.Tensor:
+    """Plain PyTorch ``close(x) - x`` with a kw x kh rect (the log-step
+    form of ``morphology.morph_blackhat``)."""
+    return morph_blackhat_plain(x, structuring_element(MORPH_RECT, (kw, kh)))
+
+
+def blackhat_rect(x: torch.Tensor, kw: int, kh: int) -> torch.Tensor:
+    """cv2.MORPH_BLACKHAT of each plane of a (B, H, W) uint8 tensor with a
+    full kw x kh rectangle, both odd (replaces tpuimage's
+    ``blackhat_rect_pallas``)."""
+    _check(x, "blackhat_rect", torch.uint8, 3)
+    if not all(k >= 1 and k % 2 == 1 for k in (kw, kh)):
+        raise ValueError(f"blackhat_rect: kw and kh must be odd and positive, got {kw}x{kh}")
+    dev = _device_of(x)
+    if dev.type == "cpu":
+        return blackhat_rect_ref(x, kw, kh)
+    b, h, w = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(dev):
+        scratch = _scratch(dev, lib.tpuimage_blackhat_rect_scratch(b, h, w, kw, kh))
+        rc = lib.tpuimage_blackhat_rect(x.data_ptr(), out.data_ptr(), scratch, b, h, w, kw, kh,
+                                        _stream(dev))
+    _raise_on(rc, "blackhat_rect")
+    _launches["blackhat_rect"] += 1
+    return out
+
+
+def inkmask_weighted_ref(sub_raw: torch.Tensor, bh_raw: torch.Tensor, adapt: torch.Tensor,
+                         t_sub: torch.Tensor, t_bh: torch.Tensor, iters: int):
+    """Plain PyTorch ink-mask epilogue: ``threshold_binary`` (strict >) of
+    both raw planes, their max, ``iters`` 2x2 dilations, then
+    ``where(mask == 0, 255, adapt)``."""
+    mask = max_u8(threshold_binary(sub_raw, t_sub[:, None, None]),
+                  threshold_binary(bh_raw, t_bh[:, None, None]))
+    if iters > 0:
+        mask = dilate(mask, _SE_INK, iterations=iters)
+    return mask, torch.where(mask == 0, torch.full_like(adapt, 255), adapt)
+
+
+def inkmask_weighted(sub_raw: torch.Tensor, bh_raw: torch.Tensor, adapt: torch.Tensor,
+                     t_sub: torch.Tensor, t_bh: torch.Tensor, iters: int = 1):
+    """(ink_mask, weighted), both (B, H, W) uint8, from the raw ink and
+    blackhat planes, the adaptive binary and one float32 threshold per
+    image for each raw plane (replaces tpuimage's
+    ``inkmask_weighted_pallas``). iters: the 2x2 dilations, >= 0."""
+    for name, a in (("sub_raw", sub_raw), ("bh_raw", bh_raw), ("adapt", adapt)):
+        _check(a, name, torch.uint8, 3)
+    _check(t_sub, "t_sub", torch.float32, 1)
+    _check(t_bh, "t_bh", torch.float32, 1)
+    if bh_raw.shape != sub_raw.shape or adapt.shape != sub_raw.shape \
+            or t_sub.shape[0] != sub_raw.shape[0] or t_bh.shape != t_sub.shape:
+        raise ValueError("inkmask_weighted: inconsistent shapes "
+                         f"{tuple(sub_raw.shape)} {tuple(bh_raw.shape)} {tuple(adapt.shape)} "
+                         f"{tuple(t_sub.shape)} {tuple(t_bh.shape)}")
+    if iters < 0:
+        raise ValueError(f"inkmask_weighted: iters must be >= 0, got {iters}")
+    dev = _device_of(sub_raw, bh_raw, adapt, t_sub, t_bh)
+    if dev.type == "cpu":
+        return inkmask_weighted_ref(sub_raw, bh_raw, adapt, t_sub, t_bh, iters)
+    b, h, w = sub_raw.shape
+    mask = torch.empty_like(sub_raw)
+    weighted = torch.empty_like(sub_raw)
+    if mask.numel() == 0:
+        return mask, weighted
+    lib = _load()
+    with torch.cuda.device(dev):
+        scratch = _scratch(dev, lib.tpuimage_inkmask_scratch(b, h, w, iters))
+        rc = lib.tpuimage_inkmask_weighted(sub_raw.data_ptr(), bh_raw.data_ptr(),
+                                           adapt.data_ptr(), t_sub.data_ptr(), t_bh.data_ptr(),
+                                           mask.data_ptr(), weighted.data_ptr(), scratch,
+                                           b, h, w, iters, _stream(dev))
+    _raise_on(rc, "inkmask_weighted")
+    _launches["inkmask_weighted"] += 1
+    return mask, weighted

@@ -91,6 +91,23 @@ def morph_close(img: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch
 
 
 def morph_blackhat(img: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
-    """cv2.MORPH_BLACKHAT = close(src) - src, saturating."""
+    """cv2.MORPH_BLACKHAT = close(src) - src, saturating.
+
+    On a CUDA uint8 tensor with a full odd rectangle at ``iterations=1``
+    this is the ``blackhat_rect`` kernel (``ops.kernels``); other SEs keep
+    the log-step form below."""
+    se = np.asarray(se)
+    kh, kw = se.shape
+    if (img.is_cuda and img.dtype == torch.uint8 and iterations == 1 and se.all()
+            and kh % 2 == 1 and kw % 2 == 1):
+        from tpuimage_torch.ops import kernels   # kernels imports this module
+        planes = img.reshape((-1,) + tuple(img.shape[-2:])).contiguous()
+        return kernels.blackhat_rect(planes, kw, kh).reshape(img.shape)
+    return morph_blackhat_plain(img, se, iterations)
+
+
+def morph_blackhat_plain(img: torch.Tensor, se: np.ndarray,
+                         iterations: int = 1) -> torch.Tensor:
+    """The log-step form of :func:`morph_blackhat`."""
     closed = morph_close(img, se, iterations)
     return saturate_u8(closed.to(torch.int32) - img.to(torch.int32))

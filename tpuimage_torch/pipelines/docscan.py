@@ -32,18 +32,15 @@ import torch
 
 from tpuimage_torch.core.device import resolve_device
 from tpuimage_torch.detect import contours as cnt
-from tpuimage_torch.ops import geometry
-from tpuimage_torch.ops.arith import (divide_u8, max_u8, normalize_minmax,
-                                      normalize_minmax_lut, subtract_u8)
+from tpuimage_torch.ops import geometry, kernels
+from tpuimage_torch.ops.arith import normalize_minmax, normalize_minmax_lut
 from tpuimage_torch.ops.color import rgb_to_gray
 from tpuimage_torch.ops.draw import draw_segments
 from tpuimage_torch.ops.edges import canny
-from tpuimage_torch.ops.filters import gaussian_blur_u8
 from tpuimage_torch.ops.histogram import hist256_batch, otsu_from_hist
 from tpuimage_torch.ops.hough import hough_fold_median_angle, hough_lines_p_det
-from tpuimage_torch.ops.morphology import (dilate, morph_blackhat, morph_close,
-                                           structuring_element)
-from tpuimage_torch.ops.threshold import adaptive_threshold, threshold_binary
+from tpuimage_torch.ops.morphology import morph_blackhat, morph_close, structuring_element
+from tpuimage_torch.ops.threshold import adaptive_threshold
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,24 +136,29 @@ def _raw_otsu_threshold(hist_raw: torch.Tensor, mask_thresh_offset) -> torch.Ten
 
 
 def _illumination(gray: torch.Tensor, c: DocScanConfig) -> torch.Tensor:
-    """Illumination correction of (B, H, W) gray pages, then NORM_MINMAX."""
+    """Illumination correction of (B, H, W) gray pages, then NORM_MINMAX:
+    the Q8.8 blur and divide / subtract fused in one ``gauss_chain``
+    launch."""
     h, w = int(gray.shape[-2]), int(gray.shape[-1])
-    bg = gaussian_blur_u8(gray, ksize=illum_ksize(h, w, c))
-    tmp = (divide_u8(gray, bg, scale=255) if c.illum_method.lower() == "divide"
-           else subtract_u8(gray, bg))
-    return normalize_minmax(tmp)
+    mode = "divide" if c.illum_method.lower() == "divide" else "subtract"
+    return normalize_minmax(kernels.gauss_chain(gray, illum_ksize(h, w, c), mode))
 
 
 def _ink_planes(stretched: torch.Tensor, c: DocScanConfig):
     """The two RAW planes the ink mask thresholds: blur - page, and the
     vertical blackhat."""
-    ink_bg = gaussian_blur_u8(stretched, ksize=mask_ksize(c))
-    return subtract_u8(ink_bg, stretched), morph_blackhat(stretched, blackhat_se(c))
+    return (kernels.gauss_chain(stretched, mask_ksize(c), "sub"),
+            morph_blackhat(stretched, blackhat_se(c)))
 
 
 def _pre_deskew_stages(warped: torch.Tensor, config: DocScanConfig) -> Dict[str, torch.Tensor]:
     """Stages 04-06b of a (B, H, W, 3) page batch: illumination, stretch,
-    ink mask, adaptive threshold, mask weighting -> (B, H, W) planes."""
+    ink mask, adaptive threshold, mask weighting -> (B, H, W) planes.
+
+    tpuimage's fused form (its ``impl="pallas"``): three ``gauss_chain``
+    launches, ``blackhat_rect``, ``hist256`` and ``inkmask_weighted``, with
+    eager gray, NORM_MINMAX and the Otsu pullback between them. Nothing is
+    read back to the host."""
     c = config
     illum = _illumination(rgb_to_gray(warped), c)
     # contrast stretch: illum is already NORM_MINMAX output, so a second
@@ -171,15 +173,14 @@ def _pre_deskew_stages(warped: torch.Tensor, config: DocScanConfig) -> Dict[str,
     t_sub = _raw_otsu_threshold(hists[:, 0], c.mask_thresh_offset)
     t_bh = _raw_otsu_threshold(hists[:, 1], c.mask_thresh_offset)
 
-    base_bin = adaptive_threshold(stretched, 255, c.thresh_method,
-                                  adaptive_block(c), c.C)
+    if c.thresh_method == "gaussian":
+        base_bin = kernels.gauss_chain(stretched, adaptive_block(c), "adaptive", C=c.C)
+    else:
+        base_bin = adaptive_threshold(stretched, 255, c.thresh_method,
+                                      adaptive_block(c), c.C)
 
-    mask_sub = threshold_binary(sub_raw, t_sub[:, None, None])
-    mask_bh = threshold_binary(bh_raw, t_bh[:, None, None])
-    ink_mask = max_u8(mask_sub, mask_bh)
-    if c.ink_dilate_iters > 0:
-        ink_mask = dilate(ink_mask, INK_DILATE_SE, iterations=c.ink_dilate_iters)
-    weighted = torch.where(ink_mask == 0, torch.full_like(base_bin, 255), base_bin)
+    ink_mask, weighted = kernels.inkmask_weighted(sub_raw, bh_raw, base_bin, t_sub, t_bh,
+                                                  c.ink_dilate_iters)
     return {"illum": illum, "stretch": stretched, "inkmask": ink_mask,
             "adapt": base_bin, "weighted": weighted}
 
