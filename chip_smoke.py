@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpuimage_torch's paths once on one CUDA card: DocScanner's
-serving path, the night paths (gray and RGB) and morph_seq.
+serving paths (scan_batch, scan_stream) and its one-document path
+(process_document), the night paths (gray and RGB) and morph_seq.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -11,39 +12,56 @@ Phases (any failure raises and the exit code is non-zero):
 1. device and build: the card's name and power limit, the torch and CUDA
    versions, and the nvcc build of tpuimage_torch/csrc/*.cu;
 2. DocScanner's kernels against their plain PyTorch versions on the card,
-   at the slice's shapes (exact equality), with the median CUDA-event
-   time of one call of each (from runs of 20 calls back to back), the
-   least time the card could take (bound) and, where PyTorch has one
-   call or a two-call composition for the same function, its time:
-   hist256 and hough_votes, then the post-warp chain's gauss_chain
-   (divide k=43, sub k=51, adaptive block 31), gaussian_blur_u8 (k=43 and
-   51), blackhat_rect (9x19) and inkmask_weighted on 8 synthetic A4 pages
-   of 1200x849, the divide epilogue on all 65,536 pairs, and the split
-   forms of the four kernels (windows too wide for their tiles: ksize 257,
-   a 129x255 rectangle, 9 dilations), exact but not timed;
+   at the paths' shapes (exact equality), with the median CUDA-event
+   time of one call of each (from runs of 20 calls back to back; 5 or 2
+   for the slower plain versions), the least time the card could take
+   (bound) and, where PyTorch has one call or a two-call composition for
+   the same function, its time: hist256 and hough_votes; rank_extract on
+   the same edge maps (each page one band, and tpuimage's 128-band
+   layout), beside the earlier nonzero compaction's time; the post-warp
+   chain's gauss_chain (divide k=43, sub k=51, adaptive block 31),
+   gaussian_blur_u8 (k=43 and 51), blackhat_rect (9x19) and
+   inkmask_weighted on 8 synthetic A4 pages of 1200x849, the divide
+   epilogue on all 65,536 pairs, and the split forms of the four kernels
+   (windows too wide for their tiles: ksize 257, a 129x255 rectangle, 9
+   dilations), exact but not timed; bilateral on 8 gray photos of
+   1600x1200 (the preprocess, d 9, 75/75), one 12 MP gray photo, 8 colour
+   images of 1280x853 (d 9, 100/75) and, exact only, face's d -1, 30/10
+   (radius 15) on 2 colour images;
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
    documents, one with tilted text, and one with no page), with the
-   kernels' launch counters reset just before and read just after; then
-   ``_pre_deskew_stages`` on the 8 pages with torch's sync debug mode set
-   to error (a read back to the host fails), timed and profiled; then the
-   ``filters.gaussian_blur_u8`` op (cv2.GaussianBlur, which no stage of
-   ``scan_batch`` calls) on the 8 gray pages, counted as a path of its own;
+   kernels' launch counters reset just before and read just after; its
+   four phases timed; then ``_pre_deskew_stages`` on the 8 pages with
+   torch's sync debug mode set to error (a read back to the host fails),
+   timed and profiled; then the ``filters.gaussian_blur_u8`` op
+   (cv2.GaussianBlur, which no stage of ``scan_batch`` calls) on the 8
+   gray pages, counted as a path of its own;
 4. card against host: two of those requests again on the CPU;
-5. the night and morph_seq kernels against their plain versions, at the
+5. ``process_document`` on two of the photos (a quad page and the
+   page-less one; in memory, no stage files: the card machine has no
+   PIL), counted, timed per document and held against the host;
+6. ``scan_stream`` over 4 batches of the 8 photos (counted), timed in
+   turns against a loop of ``scan_batch`` calls and against the stream
+   without its threads (img/s), and ``scan_batch(pipeline_chunk=4)``,
+   all equal to ``scan_batch``'s results; then
+   ``scan_batch(fallback_common_shape=True)`` on the page-less photo
+   against the host;
+7. the night and morph_seq kernels against their plain versions, at the
    slices' shapes: rgb_to_lab and clahe_apply on 8 synthetic night scenes
    of 1280x853 (the reference's nightview.png), hist256 on their 512 CLAHE
    tile rows and on morph_seq's eroded planes, gray_erode3 and
    binary_close3 on 8 RGB document photos of 963x1280 (its sample.jpg);
-6. the paths: ``night_rgb_batch``, ``night_gray_batch`` and
+8. the paths: ``night_rgb_batch``, ``night_gray_batch`` and
    ``morphseq_batch`` on those inputs, each with the counters reset just
    before and read just after, their MP/s, and a profiled window (device
    busy time against the CUDA-event time, kernels per call, the top
    kernels; post-warp gets the same in phase 3);
-7. card against host: two images of each path again on the CPU.
+9. card against host: two images of each path again on the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the per-kernel JSON record. nvcc's full output is kept beside the
-built library in tpuimage_torch/_build/.
+holds the per-kernel JSON record (all twelve kernels, each launched on
+some path). nvcc's full output is kept beside the built library in
+tpuimage_torch/_build/.
 """
 from __future__ import annotations
 
@@ -64,6 +82,7 @@ PAGE = (1200, 849)        # A4 portrait at GUI_DOCUMENT_CONFIG.scale_long
 BINARY_TOL = 0.002        # share of binary pixels card and host may differ on
 NIGHT = (853, 1280)       # nightview.png, height x width
 MORPH = (963, 1280)       # sample.jpg, height x width
+PHONE_PHOTO = (4032, 3024)  # a 12 MP phone photo, height x width
 NIGHT_RGB_TOL = (3, 0.001)  # card vs host night_rgb: max levels, share of values
 # the card's peaks for the bound (the H100 SXM data sheet): HBM bytes/s,
 # and f32 operations/s outside the tensor cores, the rate the integer and
@@ -179,11 +198,13 @@ def _exact(name, kernel_fn, plain_fn):
     return outs, err
 
 
-def _compare(name, kernel_fn, plain_fn, bound: dict, library_fn=None) -> dict:
+def _compare(name, kernel_fn, plain_fn, bound: dict, library_fn=None,
+             plain_calls: int = 20) -> dict:
     """``_exact``, then times the kernel and its plain version and returns
     the kernel's record. ``library_fn``, where PyTorch has one call (or a
     two-call composition) for the same function, must give the kernel's
-    first output too, and is timed as the library yardstick."""
+    first output too, and is timed as the library yardstick. A plain
+    version that takes tens of ms a call is timed over ``plain_calls``."""
     outs, err = _exact(name, kernel_fn, plain_fn)
     library_ms = None
     if library_fn is not None:
@@ -192,7 +213,7 @@ def _compare(name, kernel_fn, plain_fn, bound: dict, library_fn=None) -> dict:
             raise AssertionError(f"{name}: the library yardstick computes another function")
         library_ms = _cuda_ms(library_fn, reps=5, calls=20)
     rec = {"max_abs_err": err, "ms": _cuda_ms(kernel_fn, reps=5, calls=20),
-           "plain_ms": _cuda_ms(plain_fn, reps=5, calls=20),
+           "plain_ms": _cuda_ms(plain_fn, reps=5 if plain_calls > 2 else 3, calls=plain_calls),
            **bound, "library_ms": library_ms}
     print(f"{name}: shape {tuple(outs[0].shape)} exact; kernel {rec['ms']:.4f} ms, "
           f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -209,6 +230,102 @@ def _sub_record(rec: dict, what: str, sub: dict) -> None:
                 if sub[k] is not None})
 
 
+def _compact_edges_nonzero(edges: torch.Tensor, k: int):
+    """The port's edge compaction before rank_extract (torch.nonzero and
+    index scatters), kept here only to time it beside the kernel's form."""
+    b, h, w = edges.shape
+    flat = edges.reshape(b, h * w) > 0
+    true_counts = flat.sum(dim=1)
+    counts = torch.clamp(true_counts, max=k)
+    kk = max(int(counts.max()) if b else 0, 1)
+    rows, idx = torch.nonzero(flat, as_tuple=True)
+    starts = torch.cumsum(true_counts, 0) - true_counts
+    pos = torch.arange(rows.shape[0], device=edges.device) - starts[rows]
+    keep = pos < k
+    rows, idx, pos = rows[keep], idx[keep], pos[keep]
+    xs = torch.zeros((b, kk), dtype=torch.int32, device=edges.device)
+    ys = torch.zeros((b, kk), dtype=torch.int32, device=edges.device)
+    xs[rows, pos] = (idx % w).to(torch.int32)
+    ys[rows, pos] = torch.div(idx, w, rounding_mode="floor").to(torch.int32)
+    return xs, ys, counts.to(torch.int32), true_counts > k
+
+
+def _rank_planes(edges: torch.Tensor, k: int, tpu_layout: bool = False):
+    """rank_extract's inputs for a (B, H, W) edge batch as compact_edges
+    makes them: each image's flat plane one band, given as the (H*W, B)
+    view of the page-major plane, and K. With ``tpu_layout``, the first
+    image as tpuimage lays it out: position-major (N, 128), N padded to a
+    multiple of 512, with its per-band budget."""
+    b, h, w = edges.shape
+    if tpu_layout:
+        n_over_b = -(-h * w // 128)
+        n_pad = n_over_b + (-n_over_b) % 512
+        flat = torch.zeros(n_pad * 128, dtype=torch.bool, device=edges.device)
+        flat[:h * w] = edges[0].reshape(-1) > 0
+        mask = flat.reshape(n_pad, 128)
+        pi = mask.to(torch.int32)
+        return (torch.cumsum(pi, dim=0, dtype=torch.int32) - pi, mask,
+                min(max(1, k // 128), n_over_b))
+    from tpuimage_torch.ops.hough import exclusive_rank
+    flat = edges.reshape(b, h * w) > 0
+    rank, counts = exclusive_rank(flat)
+    return rank.t(), flat.t(), max(int(torch.clamp(counts, max=k).max()), 1)
+
+
+def _rank_bound(rank: torch.Tensor, mask: torch.Tensor, kk: int) -> dict:
+    """Every mask byte read once, the rank of each edge (4 bytes), the
+    kk x nb int32 slots written once."""
+    return _bound(mask.numel() + 4 * int(mask.sum()) + 4 * kk * mask.shape[1], 0)
+
+
+def _bilateral_bound(img: torch.Tensor, ntaps: int) -> dict:
+    """Each byte read and written once; per pixel and tap, gray: |diff|,
+    the table lookup, two multiplies and two adds (6); colour: three
+    |diff| and their two adds, the lookup, the weight's multiply, and per
+    channel a multiply and an add, then the weights' add (14)."""
+    n_px = img.numel() // (3 if img.dim() == 4 else 1)
+    return _bound(2 * img.numel(), (14 if img.dim() == 4 else 6) * ntaps * n_px)
+
+
+def _card_vs_host(what: str, c: dict, h: dict) -> None:
+    """One request's result on the card against the host's: use_whole and
+    the deskew angle equal, quads within 0.5 px, < BINARY_TOL of the binary
+    page's pixels different."""
+    if c["use_whole"] != h["use_whole"] or c["deskew_angle"] != h["deskew_angle"]:
+        raise AssertionError(f"{what}: card {c['use_whole']}/{c['deskew_angle']} "
+                             f"vs host {h['use_whole']}/{h['deskew_angle']}")
+    if (c["quad"] is None) != (h["quad"] is None) or (
+            c["quad"] is not None and np.abs(c["quad"] - h["quad"]).max() > 0.5):
+        raise AssertionError(f"{what}: quads differ {c['quad']} vs {h['quad']}")
+    if c["binary"].shape != h["binary"].shape:
+        raise AssertionError(f"{what}: binary {c['binary'].shape} vs {h['binary'].shape}")
+    frac = float((c["binary"] != h["binary"]).mean())
+    if frac >= BINARY_TOL:
+        raise AssertionError(f"{what}: {frac:.5f} of binary pixels differ")
+    print(f"card vs host, {what}: quad/angle/use_whole equal, {frac:.6f} of binary pixels "
+          f"differ (limit {BINARY_TOL})")
+
+
+def _doc_request(r: dict) -> dict:
+    """process_document's result in scan_batch's per-request form."""
+    return {"use_whole": r["use_whole"], "quad": r["quad"],
+            "deskew_angle": float(r["stages"]["deskew_angle"]),
+            "binary": r["binary"].cpu().numpy()}
+
+
+def _same_result(a: dict, b: dict) -> bool:
+    if set(a) != set(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if x is None or y is None or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
 def _conv_blur_u8(padded: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """cv2.GaussianBlur 8u as PyTorch's own convolution: two 1-D f32
     ``conv2d`` passes over the reflect-padded plane (TF32 off, so the
@@ -221,13 +338,15 @@ def _conv_blur_u8(padded: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     from tpuimage_torch import synth
     from tpuimage_torch.core.borders import pad2d
-    from tpuimage_torch.ops import color, edges, filters, histogram, hough, kernels, median
+    from tpuimage_torch.ops import (bilateral, color, edges, filters, histogram, hough,
+                                    kernels, median)
     from tpuimage_torch.ops.color import rgb_to_gray
     from tpuimage_torch.ops.filters import gaussian_kernel_q8
     from tpuimage_torch.pipelines import docscan, morphseq, night
@@ -236,6 +355,7 @@ def main() -> int:
     cfg = docscan.GUI_DOCUMENT_CONFIG
 
     # --- 1. device and build ------------------------------------------------
+    print(f"[phase 1 at {time.perf_counter() - t_start:.1f} s]")
     smi = _nvidia_smi()
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -249,6 +369,7 @@ def main() -> int:
             print("ptxas:", line.strip())
 
     # --- 2. kernels against their plain versions, at the slice's shapes -----
+    print(f"[phase 2 at {time.perf_counter() - t_start:.1f} s]")
     pages = np.stack([synth.page(100 + i, *PAGE, tilt_deg=(3.0 if i % 2 else 0.0),
                                  rules=(3 if i % 2 else 0)) for i in range(N_REQUESTS)])
     pages_d = torch.from_numpy(pages).to(dev)
@@ -272,8 +393,15 @@ def main() -> int:
 
     weighted = docscan._pre_deskew_stages(pages_d, cfg)["weighted"]
     deskew_edges = edges.canny(weighted, cfg.canny_low, cfg.canny_high)
-    photos = [synth.document_photo(200 + i, *PHOTO) for i in range(N_REQUESTS)]
-    photo_edges = edges.canny(rgb_to_gray(torch.from_numpy(np.stack(photos)).to(dev)),
+    # the main path's 8 photos (phase 3), made once: their edge maps and
+    # gray planes are the localize's and the preprocess's kernel inputs here
+    tilted = 1
+    inputs = [synth.document_photo(300 + i, *PHOTO,
+                                   tilt_deg=3.0 if i == tilted else 0.0,
+                                   rules=3 if i == tilted else 0,
+                                   with_page=i != N_REQUESTS - 1)
+              for i in range(N_REQUESTS)]
+    photo_edges = edges.canny(rgb_to_gray(torch.from_numpy(np.stack(inputs)).to(dev)),
                               cfg.canny_low, cfg.canny_high)
     cos_np, sin_np = hough.hough_tables()
     cos_t, sin_t = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
@@ -291,12 +419,39 @@ def main() -> int:
         hough_recs.append(_compare(
             f"hough_votes ({what}: {N_REQUESTS} edge maps {h}x{w}, "
             f"{int(counts.max())} edges max)",
-            lambda: kernels.hough_votes(*args), lambda: kernels.hough_votes_ref(*args), bound))
+            lambda: kernels.hough_votes(*args), lambda: kernels.hough_votes_ref(*args), bound,
+            plain_calls=5))
     records["hough_votes"] = {
         **hough_recs[0], "max_abs_err": max(r["max_abs_err"] for r in hough_recs),
         "localize_ms": hough_recs[1]["ms"], "localize_plain_ms": hough_recs[1]["plain_ms"],
         "localize_bound_ms": hough_recs[1]["bound_ms"]}
-    del planes, weighted, deskew_edges, photo_edges
+
+    # rank_extract on the same maps, each page one band (compact_edges's
+    # layout), and on tpuimage's position-major layout of one page
+    rank_recs = {}
+    for what, e, tpu in (("deskew", deskew_edges, False), ("localize", photo_edges, False),
+                         ("tpu_layout", deskew_edges, True)):
+        h, w = e.shape[-2:]
+        rank, mask, kk = _rank_planes(e, hough.default_max_edges(h, w), tpu)
+        rank_recs[what] = _compare(
+            f"rank_extract ({what}: {'1 page as 128 bands' if tpu else f'{N_REQUESTS} pages'} "
+            f"{h}x{w}, plane {tuple(mask.shape)}, kk {kk}, {int(mask.sum())} edges)",
+            lambda rank=rank, mask=mask, kk=kk: kernels.rank_extract(rank, mask, kk),
+            lambda rank=rank, mask=mask, kk=kk: kernels.rank_extract_ref(rank, mask, kk),
+            _rank_bound(rank, mask, kk), plain_calls=5)
+        if not tpu:
+            k = hough.default_max_edges(h, w)
+            new_ms = _cuda_ms(lambda e=e, k=k: hough.compact_edges(e, k), reps=5, calls=5)
+            old_ms = _cuda_ms(lambda e=e, k=k: _compact_edges_nonzero(e, k), reps=5, calls=5)
+            if not all(torch.equal(a, b) for a, b in zip(hough.compact_edges(e, k),
+                                                         _compact_edges_nonzero(e, k))):
+                raise AssertionError(f"compact_edges ({what}) differs from the nonzero form")
+            print(f"compact_edges ({what}): {new_ms:.4f} ms with rank_extract, "
+                  f"{old_ms:.4f} ms in the earlier nonzero form (equal outputs; for the record)")
+    records["rank_extract"] = rank_recs["deskew"]
+    for what in ("localize", "tpu_layout"):
+        _sub_record(records["rank_extract"], what, rank_recs[what])
+    del planes, weighted, deskew_edges, photo_edges, rank, mask
 
     # the post-warp chain's kernels on the 8 pages, at the path's sizes
     gray_d = rgb_to_gray(pages_d)
@@ -377,20 +532,45 @@ def main() -> int:
         print(f"{what} (split form, 2 or 8 A4 planes): exact")
     del gray_d, sub_raw, bh_raw, adapt, hists, two
 
+    # bilateral: DocScanner's preprocess (8 gray photos, d 9, 75/75), one
+    # 12 MP phone photo, landscape's GUI setting on colour (d 9, 100/75),
+    # and face's d -1, 30/10 (radius 15), exact only
+    gray_photos = rgb_to_gray(torch.from_numpy(np.stack(inputs)).to(dev))
+    phone = rgb_to_gray(torch.from_numpy(synth.document_photo(250, *PHONE_PHOTO)).to(dev))[None]
+    scenes_c = torch.from_numpy(np.stack([synth.document_photo(260 + i, *NIGHT)
+                                          for i in range(N_REQUESTS)])).to(dev)
+    bil = {}
+    for what, x, (d, sc, ss) in (("preprocess", gray_photos, (9, 75.0, 75.0)),
+                                 ("phone_12mp", phone, (9, 75.0, 75.0)),
+                                 ("color", scenes_c, (9, 100.0, 75.0))):
+        chans = 3 if x.dim() == 4 else 1
+        radius, taps, space_w, lut = bilateral.tables_on(d, sc, ss, chans, dev)
+        bil[what] = _compare(
+            f"bilateral {what} d={d} {sc:g}/{ss:g} ({x.shape[0]} x {tuple(x.shape[1:])}, "
+            f"{taps.shape[0]} taps)",
+            lambda x=x, a=(taps, space_w, lut, radius): kernels.bilateral(x, *a),
+            lambda x=x, a=(taps, space_w, lut, radius): kernels.bilateral_ref(x, *a),
+            _bilateral_bound(x, taps.shape[0]), plain_calls=2)
+    records["bilateral"] = bil["preprocess"]
+    for what in ("phone_12mp", "color"):
+        _sub_record(records["bilateral"], what, bil[what])
+    face = scenes_c[:2].contiguous()
+    radius, taps, space_w, lut = bilateral.tables_on(-1, 30.0, 10.0, 3, dev)
+    _exact("bilateral face", lambda: kernels.bilateral(face, taps, space_w, lut, radius),
+           lambda: kernels.bilateral_ref(face, taps, space_w, lut, radius))
+    print(f"bilateral face d=-1 30/10 (2 colour images {NIGHT[1]}x{NIGHT[0]}, radius "
+          f"{radius}, {taps.shape[0]} taps): exact")
+    del gray_photos, phone, scenes_c, face
+
     # --- 3. the main path ----------------------------------------------------
-    tilted = 1
-    inputs = [synth.document_photo(300 + i, *PHOTO,
-                                   tilt_deg=3.0 if i == tilted else 0.0,
-                                   rules=3 if i == tilted else 0,
-                                   with_page=i != N_REQUESTS - 1)
-              for i in range(N_REQUESTS)]
+    print(f"[phase 3 at {time.perf_counter() - t_start:.1f} s]")
     docscan.scan_batch(inputs, cfg, device=dev)          # warm-up
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     results = docscan.scan_batch(inputs, cfg, device=dev)
     torch.cuda.synchronize()
     launches = _launched("scan_batch", kernels.launch_counts(),
-                         ("hist256", "hough_votes") + PRE_DESKEW_KERNELS)
+                         ("hist256", "hough_votes", "rank_extract") + PRE_DESKEW_KERNELS)
     for i, r in enumerate(results):
         if "binary" not in r:
             raise AssertionError(f"request {i} failed: {r}")
@@ -409,14 +589,16 @@ def main() -> int:
     runs, phases = [], []
     for _ in range(3):
         t = [time.perf_counter()]
-        st = docscan._scan_localize(inputs, cfg, dev)
-        t.append(time.perf_counter())
-        docscan._scan_warp(st, cfg)
+        st = docscan._scan_load_localize(inputs, cfg, dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        docscan._scan_postwarp(st, cfg)
+        docscan._scan_quad_fit(st, cfg, False)
+        torch.cuda.synchronize()
         t.append(time.perf_counter())
-        docscan._scan_results(st)
+        docscan._scan_postwarp_dispatch(st, cfg)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        docscan._scan_fetch(st)
         t.append(time.perf_counter())
         runs.append((t[-1] - t[0]) * 1e3 / N_REQUESTS)
         phases.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
@@ -424,14 +606,14 @@ def main() -> int:
     print(f"scan_batch: {statistics.median(runs):.2f} ms/request (median of 3, warm, "
           f"batch {N_REQUESTS}); runs {[round(r, 2) for r in runs]}")
     print("phases ms (median run): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in zip(("localize+quadfit", "warp", "postwarp", "results"),
+        f"{k} {v:.2f}" for k, v in zip(("load+localize", "quadfit+warp", "postwarp", "fetch"),
                                        best)))
     stack = torch.from_numpy(np.stack(inputs)).to(dev)
     loc_ms = _cuda_ms(lambda: docscan._localize_device_batch(
         stack, cfg.canny_low, cfg.canny_high), reps=3)
     pw_ms = _cuda_ms(lambda: docscan.docscan_post_warp_batch(pages_d, cfg), reps=5)
     print(f"localize device part: {loc_ms:.2f} ms per batch of {N_REQUESTS} photos "
-          f"(the rest of localize+quadfit is the host quad fit)")
+          f"(of load+localize; quadfit+warp is mostly the host quad fit)")
     print(f"docscan_post_warp_batch: {pw_ms:.2f} ms per batch of {N_REQUESTS} A4 pages = "
           f"{N_REQUESTS * PAGE[0] * PAGE[1] / 1e3 / pw_ms:.1f} MP/s")
     _print_profile("docscan_post_warp_batch", pw_ms,
@@ -472,24 +654,98 @@ def main() -> int:
     del gray_pages, blurred
 
     # --- 4. card against host -----------------------------------------------
+    print(f"[phase 4 at {time.perf_counter() - t_start:.1f} s]")
     pick = [0, tilted]
     host = docscan.scan_batch([inputs[i] for i in pick], cfg, device="cpu")
     for i, h in zip(pick, host):
-        c = results[i]
-        if c["use_whole"] != h["use_whole"] or c["deskew_angle"] != h["deskew_angle"]:
-            raise AssertionError(f"request {i}: card {c['use_whole']}/{c['deskew_angle']} "
-                                 f"vs host {h['use_whole']}/{h['deskew_angle']}")
-        if (c["quad"] is None) != (h["quad"] is None) or (
-                c["quad"] is not None and np.abs(c["quad"] - h["quad"]).max() > 0.5):
-            raise AssertionError(f"request {i}: quads differ {c['quad']} vs {h['quad']}")
-        frac = float((c["binary"] != h["binary"]).mean())
-        if frac >= BINARY_TOL:
-            raise AssertionError(f"request {i}: {frac:.5f} of binary pixels differ")
-        print(f"card vs host, request {i}: quad/angle/use_whole equal, "
-              f"{frac:.6f} of binary pixels differ (limit {BINARY_TOL})")
-    del inputs, results, host, pages_d
+        _card_vs_host(f"request {i}", results[i], h)
 
-    # --- 5. night and morph_seq kernels against their plain versions --------
+    # --- 5. process_document: DocScanner's one-document path -----------------
+    print(f"[phase 5 at {time.perf_counter() - t_start:.1f} s]")
+    # in-memory photos and no out_dir: the card machine has no PIL
+    docs = [tilted, N_REQUESTS - 1]                      # a quad page and a use-whole one
+    for i in docs:
+        docscan.process_document(inputs[i], out_dir=None, config=cfg, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    card_docs = [docscan.process_document(inputs[i], out_dir=None, config=cfg, device=dev)
+                 for i in docs]
+    torch.cuda.synchronize()
+    for k, v in _launched("process_document", kernels.launch_counts(),
+                          ("bilateral", "rank_extract", "hough_votes", "hist256")
+                          + PRE_DESKEW_KERNELS).items():
+        launches[k] += v
+    doc_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i in docs:
+            docscan.process_document(inputs[i], out_dir=None, config=cfg, device=dev)
+        torch.cuda.synchronize()
+        doc_ms.append((time.perf_counter() - t0) * 1e3 / len(docs))
+    print(f"process_document: {statistics.median(doc_ms):.2f} ms per document (median of 3 "
+          f"runs over {len(docs)} photos {PHOTO[1]}x{PHOTO[0]}, warm, host clock, photo in "
+          f"host memory); runs {[round(m, 2) for m in doc_ms]}")
+    for i, c in zip(docs, card_docs):
+        h = docscan.process_document(inputs[i], out_dir=None, config=cfg, device="cpu")
+        diff = np.abs(c["warped"].cpu().numpy().astype(np.int32)
+                      - h["warped"].numpy().astype(np.int32))
+        if diff.max() > 1 or (diff > 0).mean() >= 0.005:
+            raise AssertionError(f"process_document {i}: warped differs by up to "
+                                 f"{diff.max()} on {(diff > 0).mean():.5f} of values")
+        _card_vs_host(f"process_document {i} (warped: {(diff > 0).mean():.6f} of values "
+                      f"differ by <= 1)", _doc_request(c), _doc_request(h))
+
+    # --- 6. scan_stream, pipeline_chunk and fallback_common_shape ----------
+    print(f"[phase 6 at {time.perf_counter() - t_start:.1f} s]")
+    # timed in turns on the host clock over the same 4 batches of 8: a loop
+    # of scan_batch calls, the stream with its load and fetch threads, the
+    # stream without them (prefetch=False), the loop again
+    batches = [inputs] * 4
+    list(docscan.scan_stream(batches[:2], cfg, device=dev))            # warm-up
+    torch.cuda.synchronize()
+    forms = {"scan_batch loop": lambda: [docscan.scan_batch(b, cfg, device=dev)
+                                         for b in batches],
+             "scan_stream": lambda: list(docscan.scan_stream(batches, cfg, device=dev)),
+             "scan_stream prefetch=False": lambda: list(docscan.scan_stream(
+                 batches, cfg, device=dev, prefetch=False))}
+    stream_s = {k: [] for k in forms}
+    outs = {}
+    for name in ("scan_batch loop", "scan_stream", "scan_stream prefetch=False",
+                 "scan_batch loop"):
+        if name == "scan_stream":
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[name] = forms[name]()
+        torch.cuda.synchronize()
+        stream_s[name].append(time.perf_counter() - t0)
+        if name == "scan_stream" and len(stream_s[name]) == 1:
+            for k, v in _launched("scan_stream", kernels.launch_counts(),
+                                  ("rank_extract", "hough_votes", "hist256")
+                                  + PRE_DESKEW_KERNELS).items():
+                launches[k] += v
+    chunked = docscan.scan_batch(inputs, cfg, device=dev, pipeline_chunk=4)
+    for res in [r for out in outs.values() for r in out] + [chunked]:
+        for i, (a, b) in enumerate(zip(res, results, strict=True)):
+            if not _same_result(a, b):
+                raise AssertionError(f"scan_stream / pipeline_chunk request {i} differs "
+                                     "from scan_batch's")
+    n_img = len(batches) * N_REQUESTS
+    print(f"scan_stream and scan_batch over {len(batches)} batches of {N_REQUESTS} photos "
+          f"{PHOTO[1]}x{PHOTO[0]} from host memory, host clock, in turns: " + "; ".join(
+              f"{k} {', '.join(f'{n_img / t:.2f}' for t in v)} img/s"
+              for k, v in stream_s.items())
+          + "; every result equal to scan_batch's, as are scan_batch(pipeline_chunk=4)'s")
+    fb = docscan.scan_batch([inputs[-1]], cfg, device=dev, fallback_common_shape=True)[0]
+    fb_host = docscan.scan_batch([inputs[-1]], cfg, device="cpu", fallback_common_shape=True)[0]
+    if fb.get("fallback_resized_to") != PAGE or fb["binary"].shape != PAGE:
+        raise AssertionError(f"fallback_common_shape: {fb.get('fallback_resized_to')} "
+                             f"{fb['binary'].shape}")
+    _card_vs_host(f"scan_batch(fallback_common_shape=True), page-less photo resized to "
+                  f"{PAGE}", fb, fb_host)
+    del inputs, results, host, pages_d, card_docs, outs, chunked
+
+    # --- 7. night and morph_seq kernels against their plain versions --------
+    print(f"[phase 7 at {time.perf_counter() - t_start:.1f} s]")
     scenes = np.stack([synth.night_scene(400 + i, *NIGHT) for i in range(N_REQUESTS)])
     scenes_d = torch.from_numpy(scenes).to(dev)
     filtered = median.median_blur(scenes_d, 3, channels_last=True).contiguous()
@@ -549,7 +805,8 @@ def main() -> int:
                     f"{what}_bound_ms": r["bound_ms"]})
     del eroded, rows
 
-    # --- 6. the night and morph_seq paths -----------------------------------
+    # --- 8. the night and morph_seq paths -----------------------------------
+    print(f"[phase 8 at {time.perf_counter() - t_start:.1f} s]")
     gray_scenes = rgb_to_gray(torch.from_numpy(scenes)).numpy()
     gray_d = torch.from_numpy(gray_scenes).to(dev)
     paths = (("night_rgb", night.night_rgb_batch, scenes, scenes_d,
@@ -586,7 +843,8 @@ def main() -> int:
         _print_profile(name, ms, lambda: fn(x_d))
         del out
 
-    # --- 7. card against host ------------------------------------------------
+    # --- 9. card against host ------------------------------------------------
+    print(f"[phase 9 at {time.perf_counter() - t_start:.1f} s]")
     for name, fn, x_np, _, _, _ in paths:
         host = {k: v.numpy() for k, v in fn(x_np[pick], device="cpu").items()}
         for k, c in card[name].items():
@@ -626,7 +884,11 @@ def main() -> int:
                "blackhat_rect": ("tpuimage_torch/csrc/blackhat_rect.cu",
                                  "tpuimage/ops/pallas_kernels.py:1465"),
                "inkmask_weighted": ("tpuimage_torch/csrc/inkmask.cu",
-                                    "tpuimage/ops/pallas_kernels.py:1560")}
+                                    "tpuimage/ops/pallas_kernels.py:1560"),
+               "bilateral": ("tpuimage_torch/csrc/bilateral.cu",
+                             "tpuimage/ops/pallas_kernels.py:89"),
+               "rank_extract": ("tpuimage_torch/csrc/rank_extract.cu",
+                                "tpuimage/ops/pallas_kernels.py:825")}
     kernel_line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **records[name]}

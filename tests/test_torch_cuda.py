@@ -252,3 +252,149 @@ def test_pre_deskew_on_card(cuda_device, a4_planes, wide):
         "gauss_chain": 3, "blackhat_rect": 1, "inkmask_weighted": 1, "hist256": 1}, counts
     for k, v in host.items():
         assert torch.equal(out[k].cpu(), v), k
+
+
+# ---------------------------------------------------------------------------
+# bilateral and rank_extract; DocScanner's process_document and scan_stream
+# ---------------------------------------------------------------------------
+
+def _bilateral_on_card(cuda_device, img, d, sc, ss):
+    from tpuimage_torch.ops import bilateral
+    out = _count("bilateral", lambda: bilateral.bilateral_filter(img.to(cuda_device), d, sc, ss))
+    assert out.shape == img.shape
+    # the plain version on the card, with the same tables
+    chans = 3 if img.dim() == 4 else 1
+    radius, taps, space_w, lut = bilateral.tables_on(d, sc, ss, chans, out.device)
+    ref = kernels.bilateral_ref(img.to(cuda_device), taps, space_w, lut, radius)
+    assert torch.equal(out, ref)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d,sc,ss", [((2, 1600, 1200), 9, 75, 75),
+                                           ((3, 97, 131), 9, 75, 75),
+                                           ((2, 61, 45), -1, 30, 10),
+                                           ((1, 7, 5), 11, 100, 100)])
+def test_bilateral_gray_on_card(cuda_device, shape, d, sc, ss):
+    """Exact against the plain version on the card (radius 4, 15 and 5;
+    the last halo wider than its image)."""
+    _bilateral_on_card(cuda_device, _odd_planes(shape), d, sc, ss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d,sc,ss", [((2, 853, 1280), 9, 100, 75),
+                                           ((2, 97, 131), 11, 100, 100),
+                                           ((1, 120, 90), -1, 30, 10)])
+def test_bilateral_color_on_card(cuda_device, shape, d, sc, ss):
+    imgs = torch.from_numpy(np.stack([synth.document_photo(40 + i, *shape[1:])
+                                      for i in range(shape[0])]))
+    _bilateral_on_card(cuda_device, imgs, d, sc, ss)
+
+
+@pytest.mark.cuda
+def test_bilateral_card_against_host(cuda_device):
+    """The host's plain version (PyTorch's CPU exp in its table) within the
+    float contract of the card's."""
+    from tpuimage_torch.ops import bilateral
+    img = torch.from_numpy(synth.document_photo(3, 240, 180))
+    for x in (img, img[..., 1].contiguous()):
+        card = bilateral.bilateral_filter(x.to(cuda_device), 9, 75, 75).cpu().numpy()
+        host = bilateral.bilateral_filter(x, 9, 75, 75).numpy()
+        diff = np.abs(card.astype(np.int32) - host.astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.005
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.05, 0.2])
+@pytest.mark.parametrize("tight", [False, True])
+def test_rank_extract_on_card(cuda_device, density, tight):
+    """Both layouts: the TPU's position-major (N, 128) plane and a
+    page-major (B, P) plane given as its transposed view."""
+    rng = np.random.default_rng(int(density * 100))
+    tpu = torch.from_numpy(rng.random((2048, 128)) < density)
+    page = torch.from_numpy(rng.random((3, 40000)) < density).t()
+    for mask in (tpu, page):
+        pi = mask.to(torch.int32)
+        rank = torch.cumsum(pi, dim=0, dtype=torch.int32) - pi
+        kk = 9 if tight else int(pi.sum(dim=0).max()) + 2
+        out = _count("rank_extract", lambda: kernels.rank_extract(
+            rank.to(cuda_device), mask.to(cuda_device), kk))
+        assert torch.equal(out.cpu(), kernels.rank_extract_ref(rank, mask, kk))
+
+
+@pytest.mark.cuda
+def test_otsu_on_card_equals_host(cuda_device):
+    """Histograms with runs of empty bins (exact ties of the between-class
+    variance): the card picks the bins the host picks."""
+    rng = np.random.default_rng(9)
+    hists = rng.integers(0, 200000, (64, 256)) * (rng.random((64, 256)) < 0.3)
+    hists[:, 0] = rng.integers(1, 10 ** 6, 64)
+    hists = torch.from_numpy(hists)
+    assert torch.equal(histogram.otsu_from_hist(hists.to(cuda_device)).cpu(),
+                       histogram.otsu_from_hist(hists))
+
+
+@pytest.mark.cuda
+def test_compact_edges_on_card(cuda_device):
+    rng = np.random.default_rng(5)
+    e = torch.from_numpy((rng.random((3, 240, 320)) < 0.1).astype(np.uint8) * 255)
+    for k in (50, 10 ** 6):
+        card = _count("rank_extract", lambda: hough.compact_edges(e.to(cuda_device), k))
+        for a, b in zip(card, hough.compact_edges(e, k)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.fixture(scope="module")
+def doc_photos():
+    """Two document photos (one with tilted text) and one with no page, 480x360."""
+    return [synth.document_photo(31, 480, 360),
+            synth.document_photo(32, 480, 360, tilt_deg=4.0, rules=3),
+            synth.document_photo(33, 480, 360, with_page=False)]
+
+
+def _assert_same_request(card, host):
+    assert card["use_whole"] == host["use_whole"]
+    assert (card["quad"] is None) == (host["quad"] is None)
+    if card["quad"] is not None:
+        assert np.abs(card["quad"] - host["quad"]).max() <= 0.5
+    assert card["binary"].shape == host["binary"].shape
+    assert (card["binary"] != host["binary"]).mean() < 0.002
+
+
+@pytest.mark.cuda
+def test_process_document_on_card(cuda_device, doc_photos):
+    import dataclasses
+    from tpuimage_torch.pipelines import docscan
+    cfg = dataclasses.replace(docscan.DocScanConfig(), scale_long=400)
+    for photo in doc_photos[1:]:
+        kernels.reset_launch_counts()
+        card = docscan.process_document(photo, out_dir=None, config=cfg)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for name in ("bilateral", "rank_extract", "hough_votes", "hist256", "gauss_chain",
+                     "blackhat_rect", "inkmask_weighted"):
+            assert counts[name] > 0, counts
+        host = docscan.process_document(photo, out_dir=None, config=cfg, device="cpu")
+        assert card["binary"].device.type == "cuda"
+        _assert_same_request({k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                              for k, v in card.items()},
+                             {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                              for k, v in host.items()})
+        assert float(card["stages"]["deskew_angle"]) == float(host["stages"]["deskew_angle"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_scan_stream_on_card(cuda_device, doc_photos, prefetch):
+    import dataclasses
+    from tpuimage_torch.pipelines import docscan
+    cfg = dataclasses.replace(docscan.GUI_DOCUMENT_CONFIG, scale_long=400)
+    batches = [doc_photos, doc_photos[::-1], doc_photos[1:]]
+    kernels.reset_launch_counts()
+    card = [r for res in docscan.scan_stream(batches, cfg, prefetch=prefetch) for r in res]
+    assert kernels.launch_counts()["rank_extract"] > 0
+    host = docscan.scan_batch([p for b in batches for p in b], cfg, device="cpu")
+    assert len(card) == len(host) == 8
+    for c, h in zip(card, host):
+        _assert_same_request(c, h)
+        assert c["deskew_angle"] == h["deskew_angle"]

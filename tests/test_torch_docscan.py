@@ -240,9 +240,14 @@ def test_scan_batch_isolates_bad_requests(photos):
     assert "error" in out[1] and set(out[1]) == {"error"}
     assert out[0]["binary"].shape == (256, 181)
     assert out[2]["use_whole"] and out[2]["binary"].shape == (256, 192)
-    for kw in ({"mesh": object()}, {"fallback_common_shape": True}, {"pipeline_chunk": 1}):
-        with pytest.raises(NotImplementedError):
-            tdoc.scan_batch(photos, CFG, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tdoc.scan_batch(photos, CFG, device="cpu", mesh=object())
+    # the same isolation when the call runs in sub-batches of one
+    chunked = tdoc.scan_batch([photos[0], bad, _t(photos[2])], CFG, device="cpu",
+                              pipeline_chunk=1)
+    assert set(chunked[1]) == {"error"}
+    for i in (0, 2):
+        np.testing.assert_array_equal(chunked[i]["binary"], out[i]["binary"])
 
 
 def test_scan_batch_runs_on_the_card_unless_asked(photos, monkeypatch):

@@ -18,7 +18,7 @@ from tpuimage.ops.pallas_kernels import (binary_close3_pallas, blackhat_rect_pal
                                          clahe_apply_pallas, gauss_chain_pallas,
                                          gaussian_blur_u8_pallas, gray_erode3_pallas,
                                          hist256_batch_pallas, inkmask_weighted_pallas,
-                                         rgb_to_lab_pallas)
+                                         rank_extract_pallas, rgb_to_lab_pallas)
 
 from tpuimage_torch import synth
 from tpuimage_torch.ops import color, histogram, hough, kernels
@@ -119,11 +119,43 @@ def test_wrappers_check_inputs_and_count_only_launches():
     kernels.blackhat_rect(planes, 129, 255)
     kernels.inkmask_weighted(planes, planes, planes, t2, t2, 9)
     kernels.divide_table("cpu")
+    taps, sw = torch.zeros((1, 2), dtype=torch.int32), torch.ones(1)
+    lut3 = kernels.color_weight_table(766, -1e-4, "cpu")
+    kernels.bilateral(planes, taps, sw, lut3[:256], 0)
+    kernels.bilateral(rgb, taps, sw, lut3, 0)
+    rank = torch.zeros((6, 2), dtype=torch.int32)
+    kernels.rank_extract(rank, rank > 0, 3)
     assert kernels.launch_counts() == {"hist256": 0, "hough_votes": 0, "rgb_to_lab": 0,
                                        "clahe_apply": 0, "gray_erode3": 0,
                                        "binary_close3": 0, "gaussian_blur_u8": 0,
                                        "gauss_chain": 0, "blackhat_rect": 0,
-                                       "inkmask_weighted": 0}
+                                       "inkmask_weighted": 0, "bilateral": 0,
+                                       "rank_extract": 0}
+    # bilateral: dtype, rank, channels, contiguity, table sizes
+    with pytest.raises(TypeError):
+        kernels.bilateral(planes.to(torch.int32), taps, sw, lut3, 0)
+    with pytest.raises(ValueError):
+        kernels.bilateral(planes[0], taps, sw, lut3, 0)
+    with pytest.raises(ValueError):
+        kernels.bilateral(rgb[..., :2].contiguous(), taps, sw, lut3, 0)
+    with pytest.raises(ValueError):
+        kernels.bilateral(planes.transpose(1, 2), taps, sw, lut3, 0)
+    with pytest.raises(ValueError):
+        kernels.bilateral(rgb, taps, sw, lut3[:256], 0)
+    with pytest.raises(ValueError):
+        kernels.bilateral(planes, taps, torch.ones(2), lut3, 0)
+    with pytest.raises(TypeError):
+        kernels.bilateral(planes, taps.to(torch.int64), sw, lut3, 0)
+    # rank_extract: dtypes and shapes; any strides are taken
+    with pytest.raises(TypeError):
+        kernels.rank_extract(rank.to(torch.int64), rank > 0, 3)
+    with pytest.raises(TypeError):
+        kernels.rank_extract(rank, rank.to(torch.uint8), 3)
+    with pytest.raises(ValueError):
+        kernels.rank_extract(rank, rank[:5] > 0, 3)
+    with pytest.raises(ValueError):
+        kernels.rank_extract(rank, rank > 0, -1)
+    assert kernels.rank_extract(rank.t(), rank.t() >= 0, 2).shape == (2, 6)
     with pytest.raises(TypeError):
         kernels.hist256_batch(x.to(torch.int32))
     with pytest.raises(ValueError):
@@ -322,6 +354,31 @@ def test_inkmask_weighted_ref_matches_pallas(rng, shape, iters):
             interpret=True)
         np.testing.assert_array_equal(mask[0].numpy(), np.asarray(ref_mask))
         np.testing.assert_array_equal(weighted[0].numpy(), np.asarray(ref_weighted))
+
+
+# ---------------------------------------------------------------------------
+# rank_extract's plain version against the Pallas kernel (interpreted), on
+# the TPU's position-major (N, 128) layout: exact, with and without drops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("density", [0.05, 0.2])
+@pytest.mark.parametrize("tight", [False, True])
+def test_rank_extract_ref_matches_pallas(rng, density, tight):
+    mask = rng.random((1024, 128)) < density
+    mask[:, 5] = False                       # an empty band
+    mask[:, 9] = True                        # a full one
+    pi = mask.astype(np.int32)
+    rank = (np.cumsum(pi, axis=0) - pi).astype(np.int32)
+    kk = 12 if tight else int(pi.sum(axis=0).max()) + 3
+    ref = np.asarray(rank_extract_pallas(jnp.asarray(rank), jnp.asarray(mask), kk,
+                                         interpret=True))
+    ours = kernels.rank_extract(torch.from_numpy(rank), torch.from_numpy(mask), kk)
+    assert ours.dtype == torch.int32 and ours.shape == (kk, 128)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    # the same plane given band-major (a transposed view) gives the same slots
+    t = kernels.rank_extract(torch.from_numpy(rank.T.copy()).t(),
+                             torch.from_numpy(mask.T.copy()).t(), kk)
+    np.testing.assert_array_equal(t.numpy(), ref)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -204,6 +204,17 @@ def test_otsu_from_hist(rng):
         assert ours[i] == float(_j(jhist.otsu_from_hist(jnp.asarray(h, jnp.int32))))
 
 
+def test_otsu_takes_the_first_bin_of_a_tie(rng):
+    """Two clusters split by empty bins: the between-class variance is the
+    same over the whole gap, and the threshold is the gap's first bin (the
+    last bin of the lower cluster), as OpenCV's strict ``>`` picks it."""
+    hists = np.zeros((3, 256), np.int64)
+    for i, (lo, hi) in enumerate(((25, 29), (0, 200), (100, 103))):
+        hists[i, max(lo - 15, 0):lo + 1] = rng.integers(50, 5000, lo + 1 - max(lo - 15, 0))
+        hists[i, hi:hi + 16] = rng.integers(50, 5000, 16)
+    np.testing.assert_array_equal(histogram.otsu_from_hist(_t(hists)).numpy(), [25, 0, 100])
+
+
 # ---------------------------------------------------------------------------
 # morphology
 # ---------------------------------------------------------------------------
@@ -266,6 +277,49 @@ def test_compact_edges_keeps_lowest_indices(rng):
         assert bool(overflow[b]) == (len(yy) > 50)
         np.testing.assert_array_equal(xs[b, :n].numpy(), xx[:n])
         np.testing.assert_array_equal(ys[b, :n].numpy(), yy[:n])
+
+
+def _compact_edges_nonzero(edges, k):
+    """The compaction's earlier form: torch.nonzero and index scatters."""
+    b, h, w = edges.shape
+    flat = edges.reshape(b, h * w) > 0
+    true_counts = flat.sum(dim=1)
+    counts = torch.clamp(true_counts, max=k)
+    kk = max(int(counts.max()) if b else 0, 1)
+    rows, idx = torch.nonzero(flat, as_tuple=True)
+    starts = torch.cumsum(true_counts, 0) - true_counts
+    pos = torch.arange(rows.shape[0]) - starts[rows]
+    keep = pos < k
+    rows, idx, pos = rows[keep], idx[keep], pos[keep]
+    xs = torch.zeros((b, kk), dtype=torch.int32)
+    ys = torch.zeros((b, kk), dtype=torch.int32)
+    xs[rows, pos] = (idx % w).to(torch.int32)
+    ys[rows, pos] = torch.div(idx, w, rounding_mode="floor").to(torch.int32)
+    return xs, ys, counts.to(torch.int32), true_counts > k
+
+
+@pytest.mark.parametrize("p", [0, 1, 1000, 1024, 3 * 1024 + 5])
+def test_exclusive_rank_equals_cumsum(rng, p):
+    flat = _t(rng.random((3, p)) < 0.4)
+    rank, counts = hough.exclusive_rank(flat)
+    ref = torch.cumsum(flat, dim=1, dtype=torch.int32) - flat.to(torch.int32)
+    assert rank.dtype == torch.int32 and rank.shape == (3, p)
+    np.testing.assert_array_equal(rank.numpy(), ref.numpy())
+    np.testing.assert_array_equal(counts.numpy(), flat.sum(dim=1).numpy())
+
+
+@pytest.mark.parametrize("density", [0.02, 0.3])
+@pytest.mark.parametrize("k", [7, 150, 10 ** 6])
+def test_compact_edges_equals_nonzero_form(rng, density, k):
+    """rank_extract's form gives the same widths, slots, zeros past each
+    count, counts and overflow flags as the nonzero form."""
+    e = _edge_maps(rng, 4, 23, 41, density)
+    e[2] = 0
+    e[3, :, :5] = 255
+    ours = hough.compact_edges(_t(e), k)
+    for a, b in zip(ours, _compact_edges_nonzero(_t(e), k)):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.is_contiguous()
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 @pytest.mark.parametrize("max_edges", [0, 200])

@@ -2,8 +2,8 @@
 
 No pipeline has learned weights. DocScanner's state is its config plus
 static tables (the Q8 Gaussian taps, the f32 adaptive-threshold taps and
-its integer offset, the Hough cos/sin tables and the structuring
-elements); the night paths' is
+its integer offset, the Hough cos/sin tables, the structuring elements
+and the preprocess's bilateral taps and weights); the night paths' is
 the Lab tables and CLAHE's blend matrices. The tables are built from
 numpy exactly as tpuimage builds them.
 """
@@ -14,10 +14,12 @@ import math
 
 import numpy as np
 
+from tpuimage_torch.ops.bilateral import tap_tables
 from tpuimage_torch.ops.color import lab_tables
 from tpuimage_torch.ops.filters import gaussian_kernel_q8, get_gaussian_kernel
 from tpuimage_torch.ops.histogram import clahe_blend_matrix, clahe_geometry
 from tpuimage_torch.ops.hough import hough_tables
+from tpuimage_torch.ops.kernels import color_weight_table
 from tpuimage_torch.pipelines.docscan import (INK_DILATE_SE, DocScanConfig,
                                               adaptive_block, blackhat_se,
                                               illum_ksize, mask_ksize)
@@ -48,6 +50,24 @@ def static_tables(config: DocScanConfig, page_shape=(1200, 849)) -> dict:
         "se_ink_dilate": INK_DILATE_SE,
     }
     return tables
+
+
+def bilateral_tables(d: int, sigma_color: float, sigma_space: float,
+                     channels: int = 1) -> dict:
+    """The bilateral filter's tables for cv2.bilateralFilter(d, sigma_color,
+    sigma_space) on 1 or 3 channels: the (T, 2) int32 (dy, dx) tap offsets
+    in tpuimage's tap order and the (T,) float32 space weights, built from
+    numpy as tpuimage builds them, and the float32 colour weights of every
+    distance 0..255 * channels (the plain version's expression, on the
+    CPU)."""
+    radius, offsets, space_w, gc = tap_tables(d, sigma_color, sigma_space)
+    return {
+        "radius": radius,
+        "tap_offsets": offsets,
+        "space_weights": space_w,
+        "gauss_color": gc,
+        "color_weights": color_weight_table(255 * channels + 1, gc, "cpu").numpy(),
+    }
 
 
 def night_tables(shape=(853, 1280), tiles=(8, 8)) -> dict:

@@ -1,8 +1,9 @@
 """Thick-segment rasterization (host-side numpy): localize draws the
-Hough segments over the edge map before the contour walk. A copy of
-``tpuimage.ops.draw.draw_segments`` (the same f64 point-to-segment
-predicate), carried in the port so that its serving path imports nothing
-of the JAX package."""
+Hough segments over the edge map before the contour walk, and
+process_document its quad overlay. Copies of ``tpuimage.ops.draw``'s
+``draw_segments`` (the same f64 point-to-segment predicate) and
+``draw_polyline_overlay``, carried in the port so that its serving path
+imports nothing of the JAX package."""
 from __future__ import annotations
 
 import ctypes
@@ -48,4 +49,19 @@ def draw_segments(shape: Tuple[int, int], segments: Iterable[Sequence[float]],
             t = np.clip(((xs - x1) * dx + (ys - y1) * dy) / L2, 0.0, 1.0)
             d2 = (xs - (x1 + t * dx)) ** 2 + (ys - (y1 + t * dy)) ** 2
         out[lo_y:hi_y + 1, lo_x:hi_x + 1] |= (d2 <= r * r).astype(np.uint8) * 255
+    return out
+
+
+def draw_polyline_overlay(img_rgb: np.ndarray, pts: np.ndarray,
+                          color: Tuple[int, int, int] = (0, 255, 0),
+                          thickness: int = 2, closed: bool = True) -> np.ndarray:
+    """A copy of the image with the polygon's outline drawn (cv2.polylines'
+    analog; DocScanner's scan_02 quad overlay)."""
+    out = np.asarray(img_rgb).copy()
+    p = np.asarray(pts, dtype=np.float64).reshape(-1, 2)
+    n = len(p)
+    segs = [(p[i][0], p[i][1], p[(i + 1) % n][0], p[(i + 1) % n][1])
+            for i in range(n - 1 + (1 if closed else 0))]
+    mask = draw_segments(out.shape[:2], segs, thickness=thickness) != 0
+    out[mask] = np.asarray(color, dtype=out.dtype)
     return out

@@ -43,15 +43,23 @@ def otsu_from_hist(hist: torch.Tensor) -> torch.Tensor:
     prefix sums round differently under every summation order (XLA's
     rewritten scan, PyTorch's CPU and CUDA scans), and a near-tie in the
     between-class variance could then pick a different bin on each device.
-    In float64 the argmax is the same on every device."""
-    h = hist.to(torch.float64)
-    n = h.sum(dim=-1, keepdim=True)
-    scale = 1.0 / n
-    idx = torch.arange(256, dtype=torch.float64, device=h.device)
-    mu = (idx * h).sum(dim=-1, keepdim=True) * scale
-    p = h * scale
-    q1 = torch.cumsum(p, dim=-1)
-    s1 = torch.cumsum(idx * p, dim=-1)
+
+    The prefix sums are integer scans (exact in any order), and every
+    float64 step after them is one correctly rounded op, so the variances
+    are the same bits on every device. That matters at exact ties: over a
+    run of empty bins the variance is constant, and argmax takes the first
+    bin of the run on the CPU and the card alike, as OpenCV's strict ``>``
+    does. (A float64 scan of the probabilities breaks such a run into
+    last-bit noise on the card, whose parallel scan associates the sums
+    differently.)"""
+    h = hist.to(torch.int64)
+    n = h.sum(dim=-1, keepdim=True).to(torch.float64)
+    idx = torch.arange(256, dtype=torch.int64, device=h.device)
+    c1 = torch.cumsum(h, dim=-1)
+    m1 = torch.cumsum(idx * h, dim=-1)
+    mu = m1[..., -1:].to(torch.float64) / n
+    q1 = c1.to(torch.float64) / n
+    s1 = m1.to(torch.float64) / n
     q2 = 1.0 - q1
     eps = float(np.finfo(np.float32).eps)
     valid = (torch.minimum(q1, q2) >= eps) & (torch.maximum(q1, q2) <= 1.0 - eps)

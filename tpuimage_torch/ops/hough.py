@@ -4,9 +4,9 @@
 Edges are compacted to per-image coordinate lists by the CPU reference's
 rule: the ``k`` lowest flat indices are kept, and ``overflow`` is
 ``count > k``. (tpuimage's banded TPU compaction also flags per-band and
-per-group overflow; the port follows the CPU reference.) The votes are
-the ``hough_votes`` kernel on a CUDA tensor and its plain version on a
-CPU tensor (``ops.kernels``).
+per-group overflow; the port follows the CPU reference.) The compaction
+is the ``rank_extract`` kernel and the votes the ``hough_votes`` kernel on
+a CUDA tensor, their plain versions on a CPU tensor (``ops.kernels``).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from tpuimage_torch.core.dtypes import f32
-from tpuimage_torch.ops.kernels import hough_votes
+from tpuimage_torch.ops.kernels import hough_votes, rank_extract
 
 
 def default_max_edges(h: int, w: int) -> int:
@@ -32,26 +32,49 @@ def hough_tables(theta_bins: int = 180, rho: float = 1.0):
             (np.sin(thetas) / rho).astype(np.float32))
 
 
+_RANK_CHUNK = 1024   # positions per chunk of exclusive_rank's first scan
+
+
+def exclusive_rank(flat: torch.Tensor):
+    """(B, P) bool -> ((B, P) int32 exclusive running count of each row,
+    (B,) int32 row counts), as ``cumsum - flat``.
+
+    A scan along a few long rows leaves most of the card idle (one row per
+    block of PyTorch's innermost-dim scan), so each row is scanned in
+    chunks of _RANK_CHUNK positions, many rows of work at once, and the
+    chunk totals' exclusive scan is added after. Integer sums: exact in
+    any order. The rank is a view of a padded buffer (rows strided)."""
+    b, p = flat.shape
+    c = max(-(-p // _RANK_CHUNK), 1)
+    x = torch.zeros((b, c * _RANK_CHUNK), dtype=torch.int32, device=flat.device)
+    x[:, :p] = flat
+    x = x.view(b, c, _RANK_CHUNK)
+    local = torch.cumsum(x, dim=2, dtype=torch.int32)
+    totals = local[:, :, -1]
+    before = torch.cumsum(totals, dim=1, dtype=torch.int32) - totals
+    rank = (local - x + before[:, :, None]).view(b, c * _RANK_CHUNK)[:, :p]
+    return rank, totals.sum(dim=1, dtype=torch.int32)
+
+
 def compact_edges(edges: torch.Tensor, k: int):
     """(B, H, W) edge maps -> (xs, ys, counts, overflow): (B, K) int32
     coordinates of each image's ``min(count, k)`` lowest-index edges in
-    row-major order, (B,) int32 counts and (B,) bool ``count > k``.
-    K is the largest kept count of the batch (at least 1)."""
+    row-major order (0 past each count), (B,) int32 counts and (B,) bool
+    ``count > k``. K is the largest kept count of the batch (at least 1).
+
+    tpuimage's sort-free form (``band_compact_coords(impl="rank")``) with
+    each image's flat plane as one band: the exclusive per-image rank by
+    cumsum (:func:`exclusive_rank`), then ``rank_extract`` puts each kept
+    edge's flat index in its slot. The one read back to the host is K."""
     b, h, w = edges.shape
     flat = edges.reshape(b, h * w) > 0
-    true_counts = flat.sum(dim=1)
+    rank, true_counts = exclusive_rank(flat)
     counts = torch.clamp(true_counts, max=k)
     kk = max(int(counts.max()) if b else 0, 1)
-    rows, idx = torch.nonzero(flat, as_tuple=True)   # row-major: sorted by (b, idx)
-    starts = torch.cumsum(true_counts, 0) - true_counts
-    pos = torch.arange(rows.shape[0], device=edges.device) - starts[rows]
-    keep = pos < k
-    rows, idx, pos = rows[keep], idx[keep], pos[keep]
-    xs = torch.zeros((b, kk), dtype=torch.int32, device=edges.device)
-    ys = torch.zeros((b, kk), dtype=torch.int32, device=edges.device)
-    xs[rows, pos] = (idx % w).to(torch.int32)
-    ys[rows, pos] = torch.div(idx, w, rounding_mode="floor").to(torch.int32)
-    return xs, ys, counts.to(torch.int32), true_counts > k
+    ci = rank_extract(rank.t(), flat.t(), kk).t()      # (B, K) flat indices
+    xs = (ci % w).contiguous()
+    ys = torch.div(ci, w, rounding_mode="floor").contiguous()
+    return xs, ys, counts, true_counts > k
 
 
 def hough_accumulator(edges: torch.Tensor, rho: float = 1.0,

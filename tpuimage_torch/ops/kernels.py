@@ -32,6 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from tpuimage_torch.core.borders import pad2d
 from tpuimage_torch.core.dtypes import descale, saturate_u8
 from tpuimage_torch.ops.arith import divide_u8, max_u8, subtract_u8
 from tpuimage_torch.ops.filters import (gaussian_blur_u8_plain, gaussian_kernel_q8,
@@ -52,21 +53,31 @@ _lib: Optional[ctypes.CDLL] = None
 # nvcc's output of the last build (ptxas register / shared-memory report)
 build_log = ""
 
-# kernel name -> launches since the last reset_launch_counts()
+# kernel name -> launches since the last reset_launch_counts(); read and
+# written under _lock, since scan_stream launches kernels from its worker
+# threads too
 _launches: Dict[str, int] = {"hist256": 0, "hough_votes": 0, "rgb_to_lab": 0,
                              "clahe_apply": 0, "gray_erode3": 0,
                              "binary_close3": 0, "gaussian_blur_u8": 0,
                              "gauss_chain": 0, "blackhat_rect": 0,
-                             "inkmask_weighted": 0}
+                             "inkmask_weighted": 0, "bilateral": 0,
+                             "rank_extract": 0}
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
+    with _lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    with _lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def _count(name: str) -> None:
+    with _lock:
+        _launches[name] += 1
 
 
 def _nvcc() -> str:
@@ -171,6 +182,10 @@ def _load() -> ctypes.CDLL:
             lib.tpuimage_inkmask_weighted.restype = i
             lib.tpuimage_inkmask_scratch.argtypes = [i, i, i, i]
             lib.tpuimage_inkmask_scratch.restype = ll
+            lib.tpuimage_bilateral.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.tpuimage_bilateral.restype = i
+            lib.tpuimage_rank_extract.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll, i, p]
+            lib.tpuimage_rank_extract.restype = i
             _lib = lib
     return _lib
 
@@ -231,7 +246,7 @@ def hist256_batch(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         rc = lib.tpuimage_hist256(x.data_ptr(), out.data_ptr(), b, n, _stream(dev))
     _raise_on(rc, "hist256")
-    _launches["hist256"] += 1
+    _count("hist256")
     return out
 
 
@@ -304,7 +319,7 @@ def hough_votes(xs: torch.Tensor, ys: torch.Tensor, counts: torch.Tensor,
             xs.data_ptr(), ys.data_ptr(), counts.data_ptr(), cos_t.data_ptr(),
             sin_t.data_ptr(), out.data_ptr(), b, k, numrho, t, shift, _stream(dev))
     _raise_on(rc, "hough_votes")
-    _launches["hough_votes"] += 1
+    _count("hough_votes")
     return out
 
 
@@ -374,7 +389,7 @@ def rgb_to_lab(img: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
         rc = lib.tpuimage_rgb_to_lab(img.data_ptr(), out.data_ptr(),
                                      tables.data_ptr(), n_pix, _stream(dev))
     _raise_on(rc, "rgb_to_lab")
-    _launches["rgb_to_lab"] += 1
+    _count("rgb_to_lab")
     return out
 
 
@@ -450,7 +465,7 @@ def clahe_apply(gray: torch.Tensor, luts: torch.Tensor, R: torch.Tensor,
                                       C.data_ptr(), out.data_ptr(), b, h, w, ty, tx,
                                       _stream(dev))
     _raise_on(rc, "clahe_apply")
-    _launches["clahe_apply"] += 1
+    _count("clahe_apply")
     return out
 
 
@@ -487,7 +502,7 @@ def gray_erode3(rgb: torch.Tensor):
         rc = lib.tpuimage_gray_erode3(rgb.data_ptr(), gray.data_ptr(), eroded.data_ptr(),
                                       b, h, w, _stream(dev))
     _raise_on(rc, "gray_erode3")
-    _launches["gray_erode3"] += 1
+    _count("gray_erode3")
     return gray, eroded
 
 
@@ -521,7 +536,7 @@ def binary_close3(eroded: torch.Tensor, thresh: torch.Tensor):
                                         binary.data_ptr(), closed.data_ptr(),
                                         b, h, w, _stream(dev))
     _raise_on(rc, "binary_close3")
-    _launches["binary_close3"] += 1
+    _count("binary_close3")
     return binary, closed
 
 
@@ -578,7 +593,7 @@ def _gauss_launch(name: str, x: torch.Tensor, ksize: int, sigma: float, mode: st
                                     b, h, w, ksize, _GAUSS_MODE_IDS[mode], idelta,
                                     _stream(dev))
     _raise_on(rc, name)
-    _launches[name] += 1
+    _count(name)
     return out
 
 
@@ -676,7 +691,7 @@ def blackhat_rect(x: torch.Tensor, kw: int, kh: int) -> torch.Tensor:
         rc = lib.tpuimage_blackhat_rect(x.data_ptr(), out.data_ptr(), scratch, b, h, w, kw, kh,
                                         _stream(dev))
     _raise_on(rc, "blackhat_rect")
-    _launches["blackhat_rect"] += 1
+    _count("blackhat_rect")
     return out
 
 
@@ -725,5 +740,138 @@ def inkmask_weighted(sub_raw: torch.Tensor, bh_raw: torch.Tensor, adapt: torch.T
                                            mask.data_ptr(), weighted.data_ptr(), scratch,
                                            b, h, w, iters, _stream(dev))
     _raise_on(rc, "inkmask_weighted")
-    _launches["inkmask_weighted"] += 1
+    _count("inkmask_weighted")
     return mask, weighted
+
+
+# ---------------------------------------------------------------------------
+# bilateral: (B, H, W) or (B, H, W, 3) uint8 -> the same, cv2.bilateralFilter
+# ---------------------------------------------------------------------------
+
+def color_weight_table(n: int, gauss_color: float, device) -> torch.Tensor:
+    """(n,) float32 colour weights ``exp(d * d * gauss_color)`` for the
+    integer distances d = 0..n-1, in f32 on ``device``: the expression
+    tpuimage's tap loop evaluates per tap, evaluated once per distance."""
+    d = torch.arange(n, dtype=torch.float32, device=device)
+    return torch.exp(d * d * float(np.float32(gauss_color)))
+
+
+def bilateral_ref(img: torch.Tensor, taps: torch.Tensor, space_w: torch.Tensor,
+                  color_lut: torch.Tensor, radius: int) -> torch.Tensor:
+    """Plain PyTorch cv2.bilateralFilter 8u of each image of a (B, H, W)
+    or (B, H, W, 3) uint8 batch, reflect-101 border: per tap (dy, dx) in
+    table order, ``w = color_lut[|diff|] * space_w[t]`` (the L1 distance
+    over the channels for colour), ``num += view * w``, ``den += w``, each
+    product and sum rounded on its own; then ``cvRound(num / den)``."""
+    color = img.dim() == 4
+    planes = img.movedim(-1, -3) if color else img        # (B, [C,] H, W)
+    h, w = planes.shape[-2], planes.shape[-1]
+    r = radius
+    padded = pad2d(planes, r, r, r, r)
+    center = planes.to(torch.int32)
+    num = torch.zeros(planes.shape, dtype=torch.float32, device=img.device)
+    den = torch.zeros(img.shape[:3], dtype=torch.float32, device=img.device)
+    for (dy, dx), sw in zip(taps.tolist(), space_w.tolist()):
+        view = padded[..., r + dy:r + dy + h, r + dx:r + dx + w]
+        diff = (view.to(torch.int32) - center).abs()
+        if color:
+            diff = diff.sum(dim=-3)
+        wgt = color_lut[diff.to(torch.int64)] * sw
+        num = num + view.to(torch.float32) * (wgt[:, None] if color else wgt)
+        den = den + wgt
+    out = saturate_u8(num / (den[:, None] if color else den))
+    return out.movedim(-3, -1).contiguous() if color else out
+
+
+def bilateral(img: torch.Tensor, taps: torch.Tensor, space_w: torch.Tensor,
+              color_lut: torch.Tensor, radius: int) -> torch.Tensor:
+    """cv2.bilateralFilter 8u of each image of a (B, H, W) gray or
+    (B, H, W, 3) colour uint8 batch (replaces tpuimage's
+    ``bilateral_gray_pallas``, and its scan form for colour).
+
+    taps: (T, 2) int32 (dy, dx) offsets, each within ``radius``, in the
+    order the sums run; space_w: (T,) float32 space weights; color_lut:
+    float32 colour weights of the distances 0..255 (gray) or 0..765
+    (colour), :func:`color_weight_table`. All on the image's device."""
+    if img.dtype != torch.uint8:
+        raise TypeError(f"bilateral: expected torch.uint8, got {img.dtype}")
+    if img.dim() not in (3, 4) or (img.dim() == 4 and img.shape[-1] != 3):
+        raise ValueError(f"bilateral: expected (B, H, W) or (B, H, W, 3), got "
+                         f"{tuple(img.shape)}")
+    if not img.is_contiguous():
+        raise ValueError("bilateral: tensor must be contiguous")
+    _check(taps, "taps", torch.int32, 2)
+    _check(space_w, "space_w", torch.float32, 1)
+    _check(color_lut, "color_lut", torch.float32, 1)
+    chans = 3 if img.dim() == 4 else 1
+    if taps.shape[1] != 2 or space_w.shape[0] != taps.shape[0] or radius < 0:
+        raise ValueError(f"bilateral: taps {tuple(taps.shape)}, space_w "
+                         f"{tuple(space_w.shape)}, radius {radius}")
+    if color_lut.shape[0] < 255 * chans + 1:
+        raise ValueError(f"bilateral: color_lut needs {255 * chans + 1} entries, "
+                         f"got {color_lut.shape[0]}")
+    dev = _device_of(img, taps, space_w, color_lut)
+    if dev.type == "cpu":
+        return bilateral_ref(img, taps, space_w, color_lut, radius)
+    out = torch.empty_like(img)
+    if out.numel() == 0:
+        return out
+    b, h, w = img.shape[:3]
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_bilateral(img.data_ptr(), taps.data_ptr(), space_w.data_ptr(),
+                                    color_lut.data_ptr(), out.data_ptr(), b, h, w, chans,
+                                    radius, taps.shape[0], color_lut.shape[0], _stream(dev))
+    _raise_on(rc, "bilateral")
+    _count("bilateral")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rank_extract: exclusive per-band edge ranks -> each band's edge positions
+# ---------------------------------------------------------------------------
+
+def rank_extract_ref(rank: torch.Tensor, mask: torch.Tensor, kk: int) -> torch.Tensor:
+    """Plain PyTorch ``ci[rank[p, b], b] = p`` for every position p of
+    band b where the mask is set and ``rank < kk``, over zeros:
+    (N, nb) -> (kk, nb) int32."""
+    n, nb = rank.shape
+    ci = torch.zeros((kk, nb), dtype=torch.int32, device=rank.device)
+    keep = mask & (rank < kk)
+    p, b = torch.nonzero(keep, as_tuple=True)
+    ci[rank[p, b].to(torch.int64), b] = p.to(torch.int32)
+    return ci
+
+
+def rank_extract(rank: torch.Tensor, mask: torch.Tensor, kk: int) -> torch.Tensor:
+    """Sort-free edge compaction (replaces tpuimage's
+    ``rank_extract_pallas``): rank (N, nb) int32 is each position's
+    exclusive edge rank within its band, mask (N, nb) bool the edges.
+    Returns ci (kk, nb) int32, the position of band b's k-th edge at
+    ``ci[k, b]``; edges of rank >= kk are dropped, and ``ci`` is 0 past a
+    band's count. Both inputs may have any strides (a page-major (B, P)
+    plane goes in transposed, as (P, B) with nb = B bands)."""
+    if rank.dtype != torch.int32:
+        raise TypeError(f"rank: expected torch.int32, got {rank.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask: expected torch.bool, got {mask.dtype}")
+    if rank.dim() != 2 or mask.shape != rank.shape:
+        raise ValueError(f"rank_extract: rank {tuple(rank.shape)} and mask "
+                         f"{tuple(mask.shape)} must be the same (N, nb)")
+    if kk < 0 or rank.shape[0] >= 2 ** 31:
+        raise ValueError(f"rank_extract: kk {kk}, N {rank.shape[0]}")
+    dev = _device_of(rank, mask)
+    if dev.type == "cpu":
+        return rank_extract_ref(rank, mask, kk)
+    n, nb = rank.shape
+    ci = torch.zeros((kk, nb), dtype=torch.int32, device=dev)
+    if ci.numel() == 0 or n == 0:
+        return ci
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_rank_extract(rank.data_ptr(), mask.data_ptr(), ci.data_ptr(), n, nb,
+                                       rank.stride(0), rank.stride(1), mask.stride(0),
+                                       mask.stride(1), kk, _stream(dev))
+    _raise_on(rc, "rank_extract")
+    _count("rank_extract")
+    return ci

@@ -1,42 +1,69 @@
-"""DocScanner's serving path on PyTorch (counterpart of
-``tpuimage.pipelines.docscan``).
+"""DocScanner on PyTorch (counterpart of ``tpuimage.pipelines.docscan``):
+the one-document path ``process_document`` and the serving paths
+``scan_batch`` and ``scan_stream``.
 
-``scan_batch`` runs four phases over a list of RGB photos:
+``process_document`` follows the reference CLI: ``preprocess`` (gray ->
+the ``bilateral`` kernel -> an optional Gaussian; dumped as scan_01),
+``localize_document`` (device Canny + Hough segments, host quad fit),
+``perspective_warp`` or the use-whole INTER_AREA resize, then the
+post-warp stages of one page; with an ``out_dir`` it writes tpuimage's
+stage files scan_01 .. scan_08.
 
-1. localize (device): gray -> Canny -> Hough segments, one batched call
-   per input shape; then the host contour walk and quad fit per image;
-2. warp (device): quad pages through their inverse homographies to the
-   page geometry (A4 portrait at scale_long: 1200x849), use-whole pages
-   resized (INTER_AREA) with their aspect kept;
-3. post-warp (device): ``docscan_post_warp_batch`` per page shape:
-   illumination, stretch, ink mask with two Otsu solves, adaptive
-   threshold, weighting, Canny -> Hough deskew angle -> rotation of the
-   pages whose angle is not 0, cleanup;
-4. results (host): per-request dicts.
+``scan_batch`` runs four phases over a list of RGB photos, named after
+tpuimage's:
+
+1. ``_scan_load_localize`` (device): load, group by input shape, one
+   upload and one localize call (gray -> Canny -> Hough segments) per
+   group;
+2. ``_scan_quad_fit`` (host, then device): fetch the edge maps and
+   segments, the contour walk and quad fit per image, the homography
+   solves; then the quad pages warp to the page geometry (A4 portrait at
+   scale_long: 1200x849) and use-whole pages resize (INTER_AREA), with
+   their aspect kept or, under ``fallback_common_shape``, to the page
+   geometry;
+3. ``_scan_postwarp_dispatch`` (device): ``docscan_post_warp_batch`` per
+   page shape (illumination, stretch, ink mask with two Otsu solves,
+   adaptive threshold, weighting, Canny -> Hough deskew angle -> rotation
+   of the pages whose angle is not 0, cleanup); results stay on the card;
+4. ``_scan_fetch`` (host): copy the results back, per-request dicts.
+
+``scan_stream`` runs the same phases over a stream of batches, phase 1 of
+the next batch on a load thread and phase 4 of an earlier one on a fetch
+thread while the caller's thread fits quads, so host and card overlap;
+``scan_batch(pipeline_chunk=k)`` drives one call through it in
+sub-batches. Both localize and deskew compact their edge maps with the
+``rank_extract`` kernel before the ``hough_votes`` kernel.
 
 Per-request failures are isolated as in tpuimage: a host-side failure
 marks its own request, a failed batched device call marks its group.
-Nothing here imports the JAX package: the host-only quad-fit helpers are
-the port's copies (``tpuimage_torch.detect.contours``,
-``tpuimage_torch.ops.draw``), and image paths load through PIL lazily.
+Nothing here imports the JAX package: the host-only helpers are the
+port's copies (``tpuimage_torch.detect.contours``, ``tpuimage_torch.ops.draw``,
+``tpuimage_torch.io.imageio``), and PIL is imported only to read or write
+image files.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
+import warnings
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpuimage_torch.core.device import resolve_device
+from tpuimage_torch.core.device import as_input, resolve_device
 from tpuimage_torch.detect import contours as cnt
+from tpuimage_torch.io import imageio
 from tpuimage_torch.ops import geometry, kernels
 from tpuimage_torch.ops.arith import normalize_minmax, normalize_minmax_lut
+from tpuimage_torch.ops.bilateral import bilateral_filter
 from tpuimage_torch.ops.color import rgb_to_gray
-from tpuimage_torch.ops.draw import draw_segments
+from tpuimage_torch.ops.draw import draw_polyline_overlay, draw_segments
 from tpuimage_torch.ops.edges import canny
+from tpuimage_torch.ops.filters import gaussian_blur_u8
 from tpuimage_torch.ops.histogram import hist256_batch, otsu_from_hist
 from tpuimage_torch.ops.hough import hough_fold_median_angle, hough_lines_p_det
 from tpuimage_torch.ops.morphology import morph_blackhat, morph_close, structuring_element
@@ -317,18 +344,188 @@ def _warp_target_size(quad: np.ndarray, page: str, scale_long: int) -> Tuple[int
 
 
 # ---------------------------------------------------------------------------
-# serving
+# stage ops of process_document
 # ---------------------------------------------------------------------------
 
-def _load_rgb(path) -> np.ndarray:
-    from PIL import Image  # only for requests given as paths
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
+def preprocess(rgb, d: int = 9, sigma_color: float = 75.0, sigma_space: float = 75.0,
+               gaussian_ksize: int = 0, device=None) -> torch.Tensor:
+    """Gray -> bilateral -> optional Gaussian of an (H, W, 3) RGB or (H, W)
+    gray uint8 image: the ``bilateral`` kernel, then, for
+    ``gaussian_ksize > 1``, ``gaussian_blur_u8``. A tensor runs where it
+    is (or on ``device``), an array on ``resolve_device(device)``."""
+    x = as_input(rgb, device)
+    gray = rgb_to_gray(x) if x.dim() == 3 else x
+    out = bilateral_filter(gray, d, sigma_color, sigma_space)
+    if gaussian_ksize and gaussian_ksize > 1:
+        out = gaussian_blur_u8(out, ksize=gaussian_ksize)
+    return out
 
+
+def _localize_parse(edges: torch.Tensor, segs: torch.Tensor, ok: torch.Tensor,
+                    config: DocScanConfig) -> list:
+    """Host half of the batched localize: fetch the edge maps and segments
+    and fit each image's quad. A failed fit is isolated to its image: its
+    entry is the exception."""
+    edges, segs, ok = edges.cpu().numpy(), segs.cpu().numpy(), ok.cpu().numpy()
+    out = []
+    for j in range(edges.shape[0]):
+        try:
+            out.append(_quad_from_localize(edges[j], segs[j], ok[j], edges.shape[1:3], config))
+        except Exception as e:  # noqa: BLE001 — per-request isolation
+            out.append(e)
+    return out
+
+
+def localize_batch(rgbs, config: DocScanConfig, device=None) -> list:
+    """Localize over a same-shape (B, H, W, 3) stack: one batched device
+    call (Canny + Hough segments), then the host quad fit of each image.
+    Returns per image its quad, None, or the exception of a failed fit."""
+    stack = as_input(rgbs, device)
+    return _localize_parse(*_localize_device_batch(stack, config.canny_low, config.canny_high),
+                           config)
+
+
+def localize_document(rgb, config: DocScanConfig, device=None) -> Optional[np.ndarray]:
+    """The document quad of one (H, W, 3) photo (TL, TR, BR, BL), or None."""
+    x = as_input(rgb, device)
+    edges, segs, ok = _localize_device_batch(x[None], config.canny_low, config.canny_high)
+    return _quad_from_localize(edges[0].cpu().numpy(), segs[0].cpu().numpy(),
+                               ok[0].cpu().numpy(), tuple(x.shape[:2]), config)
+
+
+def _use_whole(quad: Optional[np.ndarray], shape, config: DocScanConfig) -> bool:
+    """The use-whole fallback: no quad, or one covering less than
+    ``min_quad_area_ratio`` of the (H, W) photo."""
+    return quad is None or cnt.contour_area(quad) / max(
+        int(shape[0]) * int(shape[1]), 1) < config.min_quad_area_ratio
+
+
+def _fallback_common_size(shape, page: str, scale_long: int) -> Tuple[int, int]:
+    """The page geometry a use-whole page is resized to under
+    ``scan_batch(fallback_common_shape=True)``: _warp_target_size's
+    page-ratio formula with the portrait test taken from the input's own
+    aspect (A-series sqrt(2) for a custom ``page``, which has no quad to
+    take a ratio from)."""
+    h, w = int(shape[0]), int(shape[1])
+    ratio = 11.0 / 8.5 if page.upper() == "LETTER" else math.sqrt(2.0)
+    if h >= w:
+        return scale_long, int(round(scale_long / ratio))
+    return int(round(scale_long * ratio)), scale_long
+
+
+def _inverse_homography(quad: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """float64 inverse of the homography taking ``quad`` to the (th, tw)
+    page rectangle (what the warp samples through)."""
+    dst = np.array([[0, 0], [tw - 1, 0], [tw - 1, th - 1], [0, th - 1]], dtype=np.float32)
+    return np.linalg.inv(geometry.get_perspective_transform(quad.astype(np.float32), dst))
+
+
+def perspective_warp(rgb, quad: np.ndarray, page: str = "A4", scale_long: int = 1600,
+                     device=None) -> torch.Tensor:
+    """The quad's homography to the fixed page rectangle: (th, tw[, 3])
+    uint8, bilinear with a constant-0 border."""
+    th, tw = _warp_target_size(quad, page, scale_long)
+    x = as_input(rgb, device)
+    minv = torch.from_numpy(_inverse_homography(quad, th, tw).astype(np.float32))
+    return geometry.warp_perspective_batch(x[None], minv[None].to(x.device), th, tw)[0]
+
+
+# ---------------------------------------------------------------------------
+# process_document: the reference CLI's one-document contract
+# ---------------------------------------------------------------------------
+
+_STAGE_FILES = (("scan_04_illum.png", "illum"), ("scan_05_stretch.png", "stretch"),
+                ("scan_05a_inkmask.png", "inkmask"), ("scan_06_adapt.png", "adapt"),
+                ("scan_06b_weighted.png", "weighted"), ("scan_07_deskew.png", "deskew"),
+                ("scan_08_clean.png", "clean"))
+
+
+def process_document(input_path, out_dir: Optional[str] = "outputs",
+                     config: DocScanConfig = DocScanConfig(), save_stages: bool = True,
+                     do_ocr: bool = False, space_mesh=None, device=None) -> dict:
+    """One document: preprocess, localize, warp (or the use-whole
+    fallback), the post-warp stages. Returns ``{quad, warped, binary,
+    use_whole, stages}`` (tensors on the device the stages ran on) and,
+    with ``out_dir`` and ``save_stages``, writes tpuimage's stage files
+    ``scan_01_pre.png`` .. ``scan_08_clean.png`` there (writing needs
+    PIL). ``input_path``: an image path, or an RGB uint8 (H, W, 3) array
+    or tensor.
+
+    device: as ``scan_batch``'s (default the card). ``space_mesh`` (the
+    H-sharded post-warp) is not ported yet and raises
+    NotImplementedError."""
+    if space_mesh is not None:
+        raise NotImplementedError("process_document(space_mesh=...) is not ported yet")
+    if isinstance(input_path, (str, os.PathLike)):
+        input_path = imageio.load_image_rgb(input_path)
+    rgb = as_input(input_path, device)
+    c = config
+
+    def dump(name, img):
+        if save_stages and out_dir:
+            imageio.save_image(os.path.join(out_dir, name), img)
+
+    dump("scan_01_pre.png", preprocess(rgb, c.bilateral_d, c.bilateral_sigma_color,
+                                       c.bilateral_sigma_space, c.gaussian_ksize))
+
+    quad = localize_document(rgb, c)
+    h, w = int(rgb.shape[0]), int(rgb.shape[1])
+    use_whole = _use_whole(quad, (h, w), c)
+    if use_whole and not c.fallback_use_whole:
+        raise RuntimeError("Quad too small or missing, and fallback disabled.")
+
+    if save_stages and out_dir:
+        if use_whole:
+            full = np.array([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]], np.float32)
+            overlay = draw_polyline_overlay(rgb.cpu().numpy(), full, color=(255, 165, 0))
+        else:
+            overlay = draw_polyline_overlay(rgb.cpu().numpy(), quad, color=(0, 255, 0))
+        dump("scan_02_quad.png", overlay)
+
+    if use_whole:
+        warped = geometry.resize_long_side(rgb, c.scale_long, interpolation="area")
+    else:
+        warped = perspective_warp(rgb, quad, page=c.page, scale_long=c.scale_long)
+    dump("scan_03_warped.png", warped)
+
+    stages = docscan_post_warp(warped.contiguous(), c)
+    for name, key in _STAGE_FILES:
+        dump(name, stages[key])
+
+    result = {"quad": quad, "warped": warped, "binary": stages["clean"],
+              "use_whole": use_whole, "stages": stages}
+    if bool(stages["deskew_overflow"]):
+        warnings.warn("Hough edge budget overflowed during deskew: the "
+                      "deskew angle is computed from an undercounted vote "
+                      "accumulator; rerun with a larger "
+                      "DocScanConfig.deskew_max_edges.")
+    return _finish_document(result, out_dir, do_ocr)
+
+
+def _finish_document(result: dict, out_dir: Optional[str], do_ocr: bool) -> dict:
+    """Optional host OCR of the clean page (pytesseract, imported here);
+    a failure is recorded as ``ocr_error``."""
+    if do_ocr:
+        try:
+            import pytesseract
+            text = pytesseract.image_to_string(result["binary"].cpu().numpy(),
+                                               config="--psm 6")
+            if out_dir:
+                with open(os.path.join(out_dir, "scan_ocr.txt"), "w", encoding="utf-8") as f:
+                    f.write(text)
+            result["ocr_text"] = text
+        except Exception as e:  # noqa: BLE001 — OCR is optional
+            result["ocr_error"] = str(e)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# serving: scan_batch and scan_stream share four phases
+# ---------------------------------------------------------------------------
 
 def _as_rgb_tensor(item) -> torch.Tensor:
     if isinstance(item, (str, os.PathLike)):
-        item = _load_rgb(item)
+        item = imageio.load_image_rgb(item)
     t = item if isinstance(item, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(item))
     if t.dtype != torch.uint8 or t.dim() != 3 or t.shape[2] != 3:
@@ -337,9 +534,10 @@ def _as_rgb_tensor(item) -> torch.Tensor:
     return t
 
 
-def _scan_localize(inputs, config: DocScanConfig, device: torch.device) -> dict:
-    """Phase 1: load, group by shape, one localize call per group on the
-    device, then the host quad fit of each request."""
+def _scan_load_localize(inputs, config: DocScanConfig, device: torch.device) -> dict:
+    """Phase 1: load, group by shape, one upload and one localize call per
+    group. The edge maps and segments stay on the device, as does each
+    group's stack for the warp."""
     n = len(inputs)
     rgbs: list = [None] * n
     metas: list = [None] * n
@@ -353,36 +551,42 @@ def _scan_localize(inputs, config: DocScanConfig, device: torch.device) -> dict:
         if rgb is not None:
             by_shape.setdefault(tuple(rgb.shape), []).append(i)
     stacks: Dict[tuple, tuple] = {}   # shape -> (device stack, {idx: row})
-    quads: list = [None] * n
+    loc: Dict[tuple, tuple] = {}      # shape -> (edges, segs, ok) on the device
     for shape, idxs in by_shape.items():
         try:
             stack = torch.stack([rgbs[i].to(device) for i in idxs])
             stacks[shape] = (stack, {i: j for j, i in enumerate(idxs)})
-            edges, segs, ok = _localize_device_batch(stack, config.canny_low,
-                                                     config.canny_high)
-            edges, segs, ok = edges.cpu().numpy(), segs.cpu().numpy(), ok.cpu().numpy()
+            loc[shape] = _localize_device_batch(stack, config.canny_low, config.canny_high)
         except Exception as e:  # noqa: BLE001 — batched device call: whole group
             for i in idxs:
                 metas[i] = {"error": str(e)}
                 rgbs[i] = None
-            continue
-        for j, i in enumerate(idxs):
-            try:
-                quads[i] = _quad_from_localize(edges[j], segs[j], ok[j],
-                                               shape[:2], config)
-            except Exception as e:  # noqa: BLE001 — per-request isolation
-                metas[i] = {"error": str(e)}
+    return {"n": n, "rgbs": rgbs, "metas": metas, "by_shape": by_shape,
+            "stacks": stacks, "loc": loc}
+
+
+def _scan_quad_fit(state: dict, config: DocScanConfig, fallback_common_shape: bool) -> None:
+    """Phase 2: fetch the localize outputs, fit the quads on the host,
+    solve the homographies, then warp the quad pages in one batched call
+    per (input shape, target shape) and resize the use-whole pages.
+    Leaves ``state['pages']`` on the device."""
+    rgbs, metas, stacks = state["rgbs"], state["metas"], state["stacks"]
+    quads: list = [None] * state["n"]
+    for shape, idxs in state["by_shape"].items():
+        if shape not in state["loc"]:
+            continue   # the group failed in phase 1
+        try:
+            found = _localize_parse(*state["loc"][shape], config)
+        except Exception as e:  # noqa: BLE001 — batched device call: whole group
+            found = [e] * len(idxs)
+        for i, q in zip(idxs, found):
+            if isinstance(q, Exception):
+                metas[i] = {"error": str(q)}
                 rgbs[i] = None
-    return {"n": n, "rgbs": rgbs, "metas": metas, "quads": quads,
-            "stacks": stacks}
+            else:
+                quads[i] = q
+    del state["loc"]
 
-
-def _scan_warp(state: dict, config: DocScanConfig) -> None:
-    """Phase 2: quad pages warp to the page geometry, one batched call per
-    (input shape, target shape); use-whole pages resize with their aspect
-    kept. Leaves ``state['pages']`` on the device."""
-    rgbs, metas, quads = state["rgbs"], state["metas"], state["quads"]
-    stacks = state["stacks"]
     pages: list = [None] * state["n"]
     warp_groups: Dict[tuple, list] = {}
     for i, rgb in enumerate(rgbs):
@@ -390,28 +594,26 @@ def _scan_warp(state: dict, config: DocScanConfig) -> None:
             continue
         try:
             quad = quads[i]
-            use_whole = quad is None
-            if quad is not None:
-                ratio = cnt.contour_area(quad) / max(rgb.shape[0] * rgb.shape[1], 1)
-                use_whole = ratio < config.min_quad_area_ratio
+            use_whole = _use_whole(quad, rgb.shape, config)
             metas[i] = {"quad": quad, "use_whole": use_whole}
             stack, pos = stacks[tuple(rgb.shape)]
-            if use_whole:
-                pages[i] = geometry.resize_long_side(stack[pos[i]], config.scale_long,
-                                                     interpolation="area")
-            else:
+            if not use_whole:
                 th, tw = _warp_target_size(quad, config.page, config.scale_long)
                 warp_groups.setdefault((tuple(rgb.shape), th, tw), []).append(i)
+            elif fallback_common_shape:
+                th, tw = _fallback_common_size(rgb.shape, config.page, config.scale_long)
+                pages[i] = geometry.resize(stack[pos[i]], th, tw, "area")
+                metas[i]["fallback_resized_to"] = (th, tw)
+            else:
+                pages[i] = geometry.resize_long_side(stack[pos[i]], config.scale_long,
+                                                     interpolation="area")
         except Exception as e:  # noqa: BLE001 — per-request isolation
             metas[i] = {"error": str(e)}
     for (shape, th, tw), idxs in warp_groups.items():
-        dst = np.array([[0, 0], [tw - 1, 0], [tw - 1, th - 1], [0, th - 1]],
-                       dtype=np.float32)
         minvs, good = [], []
         for i in idxs:
             try:   # a degenerate quad must not poison its group
-                minvs.append(np.linalg.inv(geometry.get_perspective_transform(
-                    metas[i]["quad"].astype(np.float32), dst)))
+                minvs.append(_inverse_homography(metas[i]["quad"], th, tw))
                 good.append(i)
             except Exception as e:  # noqa: BLE001 — per-request isolation
                 metas[i] = {"error": str(e)}
@@ -432,41 +634,58 @@ def _scan_warp(state: dict, config: DocScanConfig) -> None:
     del state["stacks"]
 
 
-def _scan_postwarp(state: dict, config: DocScanConfig) -> None:
-    """Phase 3: the post-warp program per page shape; results come back
-    to the host as numpy."""
+def _scan_postwarp_dispatch(state: dict, config: DocScanConfig) -> None:
+    """Phase 3: the post-warp program per page shape. Each group's clean
+    pages, angles and overflow flags stay on the device in
+    ``state['groups']``."""
     pages, metas = state["pages"], state["metas"]
-    out_by_idx = {}
+    groups = []
     for shape in {tuple(p.shape) for p in pages if p is not None}:
         idxs = [i for i, p in enumerate(pages)
                 if p is not None and tuple(p.shape) == shape]
         try:
-            out = docscan_post_warp_batch(torch.stack([pages[i] for i in idxs]),
-                                          config)
-            clean = out["clean"].cpu().numpy()
-            angles = out["deskew_angle"].cpu().numpy()
-            oflow = out["deskew_overflow"].cpu().numpy()
+            out = docscan_post_warp_batch(torch.stack([pages[i] for i in idxs]), config)
+        except Exception as e:  # noqa: BLE001 — batched device call: whole group
+            for i in idxs:
+                metas[i] = {"error": str(e)}
+            continue
+        groups.append((idxs, out["clean"], out["deskew_angle"], out["deskew_overflow"]))
+    state["groups"] = groups
+    del state["pages"]
+
+
+def _scan_fetch(state: dict) -> list:
+    """Phase 4: copy each group's results to the host and build the
+    per-request dicts."""
+    metas = state["metas"]
+    out_by_idx = {}
+    for idxs, clean, angles, oflow in state["groups"]:
+        try:
+            clean, angles, oflow = clean.cpu().numpy(), angles.cpu().numpy(), oflow.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — batched device call: whole group
             for i in idxs:
                 metas[i] = {"error": str(e)}
             continue
         for j, i in enumerate(idxs):
             out_by_idx[i] = (clean[j], float(angles[j]), bool(oflow[j]))
-    state["out"] = out_by_idx
-    del state["pages"]
-
-
-def _scan_results(state: dict) -> list:
-    """Phase 4: per-request result dicts."""
     results = []
-    for i, meta in enumerate(state["metas"]):
+    for i, meta in enumerate(metas):
         if "error" in meta:
             results.append(meta)
         else:
-            binary, angle, oflow = state["out"][i]
+            binary, angle, oflow = out_by_idx[i]
             results.append({**meta, "binary": binary, "deskew_angle": angle,
                             "deskew_overflow": oflow})
     return results
+
+
+def _auto_pipeline_chunk(n: int) -> int:
+    """Sub-batch size for scan_batch's pipelining when the caller gives
+    none: 0 (off). On an H100 the stream measured no faster than a loop of
+    scan_batch calls (PERF.md): the host quad fit, which it cannot
+    overlap, is most of a batch."""
+    del n
+    return 0
 
 
 def scan_batch(inputs, config: DocScanConfig = GUI_DOCUMENT_CONFIG,
@@ -479,17 +698,119 @@ def scan_batch(inputs, config: DocScanConfig = GUI_DOCUMENT_CONFIG,
 
     device: where the device phases run (default: ``cuda``; raises
     RuntimeError when there is no CUDA device, so a caller who wants the
-    host passes ``device="cpu"``). ``mesh``, ``fallback_common_shape`` and
-    a positive ``pipeline_chunk`` are not ported yet and raise
-    NotImplementedError."""
+    host passes ``device="cpu"``).
+
+    fallback_common_shape=True resizes use-whole pages (INTER_AREA, no
+    padding) to the page geometry (``_fallback_common_size``) instead of
+    keeping their aspect, so they share the quad pages' shape groups; such
+    a page's dict carries ``fallback_resized_to``.
+
+    pipeline_chunk: a positive value smaller than len(inputs) splits the
+    call into sub-batches of that many images, driven through
+    scan_stream so that one sub-batch's host work overlaps the device
+    work of the one before; None takes ``_auto_pipeline_chunk`` (off).
+    Per-request results are the same either way. ``mesh`` is not ported
+    yet and raises NotImplementedError."""
     if mesh is not None:
         raise NotImplementedError("scan_batch(mesh=...) is not ported yet")
-    if fallback_common_shape:
-        raise NotImplementedError(
-            "scan_batch(fallback_common_shape=True) is not ported yet")
-    if pipeline_chunk:
-        raise NotImplementedError("scan_batch(pipeline_chunk=...) is not ported yet")
-    state = _scan_localize(inputs, config, resolve_device(device))
-    _scan_warp(state, config)
-    _scan_postwarp(state, config)
-    return _scan_results(state)
+    dev = resolve_device(device)
+    n = len(inputs)
+    k = _auto_pipeline_chunk(n) if pipeline_chunk is None else int(pipeline_chunk)
+    if 0 < k < n:
+        out: list = []
+        for res in scan_stream([inputs[i:i + k] for i in range(0, n, k)], config,
+                               device=dev, fallback_common_shape=fallback_common_shape):
+            out.extend(res)
+        return out
+    state = _scan_load_localize(inputs, config, dev)
+    _scan_quad_fit(state, config, fallback_common_shape)
+    _scan_postwarp_dispatch(state, config)
+    return _scan_fetch(state)
+
+
+def scan_stream(batches, config: DocScanConfig = GUI_DOCUMENT_CONFIG, device=None,
+                mesh=None, fallback_common_shape: bool = False, prefetch: bool = True):
+    """Pipelined serving over an iterable of batches: a generator that
+    yields scan_batch's result list for each batch, in input order, with
+    the same per-request results, but runs the four phases across
+    batches so that host and device work overlap:
+
+        phase 1 of batch i         (on the load thread with ``prefetch``)
+        phase 3 of batch i-1       post-warp, queued on the device
+        phase 4 of batch i-2       (on the fetch thread with ``prefetch``)
+        phase 2 of batch i         host quad fit, homography solves, warp
+
+    At most two batches are in flight plus one being prepared. With
+    ``prefetch=False`` every phase runs on the calling thread in the same
+    order. The kernels' launch counters are locked, and phases of
+    different batches touch disjoint state. Closing the generator early
+    cancels the queued work; a phase already running on a worker thread
+    finishes in the background. ``device`` and ``mesh`` as in
+    scan_batch (checked when this is called, not at the first batch)."""
+    if mesh is not None:
+        raise NotImplementedError("scan_stream(mesh=...) is not ported yet")
+    return _scan_stream(iter(batches), config, resolve_device(device),
+                        fallback_common_shape, prefetch)
+
+
+def _scan_stream(it, config: DocScanConfig, dev: torch.device,
+                 fallback_common_shape: bool, prefetch: bool):
+    ready = None          # quad fit done, post-warp not yet dispatched
+    inflight = deque()    # post-warp dispatched, results not fetched
+    fetches = deque()     # fetch futures (or results), input order
+    ex = fex = None
+    if prefetch:
+        ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="scan_stream_load")
+        fex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="scan_stream_fetch")
+    pending = None
+    try:
+        def next_state():
+            """Phase 1 of the next batch, on the load thread if any."""
+            try:
+                inputs = next(it)
+            except StopIteration:
+                return None
+            if ex is None:
+                return _scan_load_localize(inputs, config, dev)
+            return ex.submit(_scan_load_localize, inputs, config, dev)
+
+        def start_fetch(st):
+            return _scan_fetch(st) if fex is None else fex.submit(_scan_fetch, st)
+
+        def emit(f):
+            return f if fex is None else f.result()
+
+        pending = next_state()
+        while pending is not None:
+            state = pending.result() if ex is not None else pending
+            pending = next_state()   # overlaps everything below
+            if ready is not None:
+                _scan_postwarp_dispatch(ready, config)
+                inflight.append(ready)
+            while len(inflight) > 1:
+                # hand (i-2)'s fetch over before the quad fit, so that the
+                # copy rides under the host work; emit a batch only once a
+                # newer fetch is queued behind it
+                fetches.append(start_fetch(inflight.popleft()))
+            _scan_quad_fit(state, config, fallback_common_shape)
+            while len(fetches) > 1:
+                yield emit(fetches.popleft())
+            ready = state
+        if ready is not None:
+            _scan_postwarp_dispatch(ready, config)
+            inflight.append(ready)
+        while inflight:
+            fetches.append(start_fetch(inflight.popleft()))
+        while fetches:
+            yield emit(fetches.popleft())
+    finally:
+        if ex is not None:
+            # a queued phase 1 is cancelled; a running one cannot be and
+            # finishes in the background
+            if isinstance(pending, Future):
+                pending.cancel()
+            ex.shutdown(wait=False, cancel_futures=True)
+        if fex is not None:
+            for f in fetches:
+                f.cancel()
+            fex.shutdown(wait=False, cancel_futures=True)
