@@ -20,14 +20,20 @@ Phases (any failure raises and the exit code is non-zero):
    the same edge maps (each page one band, and tpuimage's 128-band
    layout), beside the earlier nonzero compaction's time; the post-warp
    chain's gauss_chain (divide k=43, sub k=51, adaptive block 31),
-   gaussian_blur_u8 (k=43 and 51), blackhat_rect (9x19) and
+   gaussian_blur_u8 (k=43 and 51, and the wide 83 and 255), blackhat_rect
+   (9x19) and
    inkmask_weighted on 8 synthetic A4 pages of 1200x849, the divide
    epilogue on all 65,536 pairs, and the split forms of the four kernels
    (windows too wide for their tiles: ksize 257, a 129x255 rectangle, 9
    dilations), exact but not timed; bilateral on 8 gray photos of
    1600x1200 (the preprocess, d 9, 75/75), one 12 MP gray photo, 8 colour
    images of 1280x853 (d 9, 100/75) and, exact only, face's d -1, 30/10
-   (radius 15) on 2 colour images;
+   (radius 15) on 2 colour images; hough_votes and the separable Gaussian
+   (gauss_chain, gaussian_blur_u8) also on inputs chosen to break them
+   (``synth.hough_stress_cases``, ``synth.BLUR_STRESS_SHAPES``; exact, not
+   timed), their times beside those of the direct designs they replaced,
+   and hough_votes on random coordinates of the same lengths (its floor
+   without runs of equal bins);
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
    documents, one with tilted text, and one with no page), with the
    kernels' launch counters reset just before and read just after; its
@@ -84,13 +90,30 @@ NIGHT = (853, 1280)       # nightview.png, height x width
 MORPH = (963, 1280)       # sample.jpg, height x width
 PHONE_PHOTO = (4032, 3024)  # a 12 MP phone photo, height x width
 NIGHT_RGB_TOL = (3, 0.001)  # card vs host night_rgb: max levels, share of values
-# the card's peaks for the bound (the H100 SXM data sheet): HBM bytes/s,
-# and f32 operations/s outside the tensor cores, the rate the integer and
-# f32 work of these kernels is counted at
+# the card's peaks for the bound (the H100 SXM data sheet, dense): HBM
+# bytes/s; f32 operations/s outside the tensor cores, the rate the integer
+# and f32 work of the kernels is counted at; and int8 operations/s on the
+# tensor cores, the rate for products of bytes with bytes (the Q8.8 Gaussian)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12
 # the kernels _pre_deskew_stages launches, besides hist256
 PRE_DESKEW_KERNELS = ("gauss_chain", "blackhat_rect", "inkmask_weighted")
+# card ms (lowest, highest of four runs) of the first, direct designs of
+# hough_votes and the separable Gaussian at phase 2's shapes, before their
+# redesign: NVIDIA H100 80GB HBM3, 700.00 W (PERF.md's kernel table). The
+# two wide blurs: that design's source built and timed beside the redesign
+# by tpuimage_torch/tools/time_gauss_sep.py, one call on the same card
+DIRECT_DESIGN_MS = {"hough_votes deskew": (0.1400, 0.1451),
+                    "hough_votes localize": (0.1710, 0.1801),
+                    "gauss_chain divide": (0.2507, 0.2595),
+                    "gauss_chain sub": (0.2813, 0.2855),
+                    "gauss_chain adaptive": (0.1719, 0.1737),
+                    "gaussian_blur_u8 k=43": (0.2495, 0.2520),
+                    "gaussian_blur_u8 k=51": (0.2888, 0.2950),
+                    "gaussian_blur_u8 k=83": (0.4851, 0.4851),
+                    "gaussian_blur_u8 k=255": (3.9771, 3.9771)}
+WIDE_BLUR_KSIZES = (83, 255)   # the ends of the sliding-window form's Q8.8 range
 
 
 def _nvidia_smi() -> str:
@@ -154,12 +177,12 @@ def _print_profile(what: str, wall_ms: float, fn) -> None:
           + "; top ops: " + "; ".join(f"{k} {v:.3f} ms" for k, v in ops))
 
 
-def _bound(nbytes: float, ops: float) -> dict:
+def _bound(nbytes: float, ops: float, ops_per_s: float = ALU_OPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over HBM bandwidth
-    and the operations over the ALU rate."""
+    and the operations over the card's peak rate for their type."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / ALU_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -220,6 +243,15 @@ def _compare(name, kernel_fn, plain_fn, bound: dict, library_fn=None,
           f"({rec['bound_by']})" + ("" if library_ms is None else
                                    f", library {library_ms:.4f} ms"))
     return rec
+
+
+def _beside_direct_design(what: str, rec: dict) -> None:
+    """Print a redesigned kernel's time beside its direct design's range
+    at the same shape, and the share of the bound it reaches."""
+    lo, hi = DIRECT_DESIGN_MS[what]
+    print(f"{what}: {rec['ms']:.4f} ms; the direct design took {lo:.4f}-{hi:.4f} ms "
+          f"(NVIDIA H100 80GB HBM3, 700.00 W): {lo / rec['ms']:.2f}-{hi / rec['ms']:.2f}x; "
+          f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound")
 
 
 def _sub_record(rec: dict, what: str, sub: dict) -> None:
@@ -421,10 +453,29 @@ def main() -> int:
             f"{int(counts.max())} edges max)",
             lambda: kernels.hough_votes(*args), lambda: kernels.hough_votes_ref(*args), bound,
             plain_calls=5))
+        _beside_direct_design(f"hough_votes {what}", hough_recs[-1])
+        # the same lengths at random coordinates: no run of neighbours
+        # shares a bin, so what is left is the kernel's floor on its atomics
+        gen_h = torch.Generator(device=dev).manual_seed(len(hough_recs))
+        rand = (torch.randint(0, w, xs.shape, generator=gen_h, device=dev, dtype=torch.int32),
+                torch.randint(0, h, xs.shape, generator=gen_h, device=dev, dtype=torch.int32))
+        hough_recs[-1]["random_coords_ms"] = _cuda_ms(
+            lambda: kernels.hough_votes(*rand, *args[2:]), reps=5, calls=20)
+        print(f"hough_votes ({what}) on random coordinates of the same lengths: "
+              f"{hough_recs[-1]['random_coords_ms']:.4f} ms")
     records["hough_votes"] = {
         **hough_recs[0], "max_abs_err": max(r["max_abs_err"] for r in hough_recs),
         "localize_ms": hough_recs[1]["ms"], "localize_plain_ms": hough_recs[1]["plain_ms"],
-        "localize_bound_ms": hough_recs[1]["bound_ms"]}
+        "localize_bound_ms": hough_recs[1]["bound_ms"],
+        "localize_random_coords_ms": hough_recs[1]["random_coords_ms"]}
+    for name, xs_n, ys_n, counts_n, h, w in synth.hough_stress_cases():
+        numrho = (h + w) * 2 + 1
+        args = (*(torch.from_numpy(a).to(dev) for a in (xs_n, ys_n, counts_n)), cos_t, sin_t,
+                numrho, (numrho - 1) // 2)
+        _exact(f"hough_votes {name}", lambda: kernels.hough_votes(*args),
+               lambda: kernels.hough_votes_ref(*args))
+        print(f"hough_votes {name} ({xs_n.shape[0]} lists of up to {xs_n.shape[1]} edges, "
+              f"counts {counts_n.tolist()[:6]}, {w}x{h}): exact")
 
     # rank_extract on the same maps, each page one band (compact_edges's
     # layout), and on tpuimage's position-major layout of one page
@@ -458,10 +509,12 @@ def main() -> int:
     n_px = N_REQUESTS * n
     ik, mk, ab = docscan.illum_ksize(*PAGE, cfg), docscan.mask_ksize(cfg), \
         docscan.adaptive_block(cfg)
-    # per pass and pixel, over the symmetric taps: Q8.8 r pair adds and
-    # r + 1 multiply-adds; adaptive 1 + 3r (the centre product, then per
-    # pair its add, the product and the accumulating add)
-    q8_bound = lambda k: _bound(2 * n_px + 4 * k, 2 * (2 + 3 * (k // 2)) * n_px)  # noqa: E731
+    # per pass and pixel: Q8.8, whose taps are not symmetric, k products of
+    # a byte with a byte and their adds, at the int8 tensor cores' rate;
+    # adaptive 1 + 3r f32 operations (the centre product, then per pair its
+    # add, the product and the accumulating add, in a pinned order)
+    q8_bound = lambda k: _bound(2 * n_px + 4 * k, 2 * 2 * k * n_px,  # noqa: E731
+                                INT8_TENSOR_OPS_PER_S)
     adaptive_bound = _bound(2 * n_px + 4 * ab, 2 * (1 + 3 * (ab // 2)) * n_px)
     chain = {}
     for what, x, k, mode, C, bound in (("divide", gray_d, ik, "divide", 0.0, q8_bound(ik)),
@@ -472,6 +525,7 @@ def main() -> int:
             f"gauss_chain {mode} k={k} ({N_REQUESTS} A4 planes {PAGE[1]}x{PAGE[0]})",
             lambda x=x, k=k, mode=mode, C=C: kernels.gauss_chain(x, k, mode, C),
             lambda x=x, k=k, mode=mode, C=C: kernels.gauss_chain_ref(x, k, mode, C), bound)
+        _beside_direct_design(f"gauss_chain {what}", chain[what])
     records["gauss_chain"] = chain["divide"]
     for what in ("sub", "adaptive"):
         _sub_record(records["gauss_chain"], what, chain[what])
@@ -488,9 +542,19 @@ def main() -> int:
             lambda x=x, k=k: kernels.gaussian_blur_u8_ref(x, k), q8_bound(k),
             lambda padded=padded, taps=taps: _conv_blur_u8(padded, taps))
         del padded
+        _beside_direct_design(f"gaussian_blur_u8 k={k}", blur[k])
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    # windows too wide for the tensor-core form's registers: the Q8.8 modes
+    # in the sliding-window form
+    for k in WIDE_BLUR_KSIZES:
+        blur[k] = _compare(
+            f"gaussian_blur_u8 k={k} ({N_REQUESTS} A4 planes {PAGE[1]}x{PAGE[0]})",
+            lambda k=k: kernels.gaussian_blur_u8(stretched, k),
+            lambda k=k: kernels.gaussian_blur_u8_ref(stretched, k), q8_bound(k), plain_calls=2)
+        _beside_direct_design(f"gaussian_blur_u8 k={k}", blur[k])
     records["gaussian_blur_u8"] = blur[ik]
-    _sub_record(records["gaussian_blur_u8"], f"k{mk}", blur[mk])
+    for k in (mk, *WIDE_BLUR_KSIZES):
+        _sub_record(records["gaussian_blur_u8"], f"k{k}", blur[k])
     bk_h, bk_w = docscan.blackhat_se(cfg).shape
     # four 1-D extremes of ~3 compares per pixel (van Herk), the subtract and clamp
     records["blackhat_rect"] = _compare(
@@ -530,7 +594,27 @@ def main() -> int:
     for what, kernel_fn, plain_fn in wide:
         _exact(what, kernel_fn, plain_fn)
         print(f"{what} (split form, 2 or 8 A4 planes): exact")
-    del gray_d, sub_raw, bh_raw, adapt, hists, two
+    # the separable Gaussian on shapes and sizes chosen to break it, every mode
+    n_cases = 0
+    for shape in synth.BLUR_STRESS_SHAPES:
+        x = torch.from_numpy(synth.blur_stress_planes(shape)).to(dev)
+        for k in synth.BLUR_STRESS_KSIZES:
+            _exact(f"gaussian_blur_u8 {shape} k={k}", lambda: kernels.gaussian_blur_u8(x, k),
+                   lambda: kernels.gaussian_blur_u8_ref(x, k))
+            for mode, C in synth.CHAIN_STRESS_MODES:
+                _exact(f"gauss_chain {mode} C={C} {shape} k={k}",
+                       lambda: kernels.gauss_chain(x, k, mode, C),
+                       lambda: kernels.gauss_chain_ref(x, k, mode, C))
+            n_cases += 1 + len(synth.CHAIN_STRESS_MODES)
+    x = torch.from_numpy(synth.blur_stress_planes(synth.BLUR_STRESS_SHAPES[0])).to(dev)
+    for k, sigma in ((3, 0.01), (5, 0.2), (43, 0.3)):     # (nearly) all 256 on one tap
+        _exact(f"gaussian_blur_u8 k={k} sigma={sigma}",
+               lambda: kernels.gaussian_blur_u8(x, k, sigma),
+               lambda: kernels.gaussian_blur_u8_ref(x, k, sigma))
+    print(f"gaussian_blur_u8 / gauss_chain on shapes {synth.BLUR_STRESS_SHAPES}, ksize "
+          f"{synth.BLUR_STRESS_KSIZES}, every mode, and a centre tap of 256: "
+          f"{n_cases + 3} cases exact")
+    del gray_d, sub_raw, bh_raw, adapt, hists, two, x
 
     # bilateral: DocScanner's preprocess (8 gray photos, d 9, 75/75), one
     # 12 MP phone photo, landscape's GUI setting on colour (d 9, 100/75),

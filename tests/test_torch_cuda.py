@@ -57,6 +57,55 @@ def test_hough_votes_kernel_on_card(cuda_device, shape, density):
     assert torch.equal(acc.cpu(), hough.hough_accumulator(edges)[0])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rows_and_columns", "every_pixel_capped",
+                                  "counts_around_a_warp", "photo_numrho",
+                                  "many_large_maps", "many_tiny_maps"])
+def test_hough_votes_kernel_on_stress_lists(cuda_device, case):
+    """Lists that make a warp vote for one bin (whole rows at theta 90,
+    whole columns at theta 0), a count capped by the list's width, counts
+    around the warp size, the 1600x1200 photo's numrho, more large maps
+    than the card has multiprocessors to share out (rho windows taken a
+    few thetas at a time), and over a thousand tiny maps."""
+    _, xs, ys, counts, h, w = next(c for c in synth.hough_stress_cases() if c[0] == case)
+    numrho = (h + w) * 2 + 1
+    args = [torch.from_numpy(a) for a in (xs, ys, counts, *hough.hough_tables())]
+    out = _count("hough_votes", lambda: kernels.hough_votes(
+        *(a.to(cuda_device) for a in args), numrho, (numrho - 1) // 2))
+    ref = kernels.hough_votes_ref(*args, numrho, (numrho - 1) // 2)
+    assert torch.equal(out.cpu(), ref)
+    kept = torch.clamp(args[2], max=xs.shape[1])
+    assert torch.equal(ref.sum(dim=1), kept[:, None].expand(-1, 180))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_theta", [1, 31, 33, 200])
+def test_hough_votes_kernel_at_other_theta_counts(cuda_device, n_theta):
+    """Theta tables shorter and longer than the 180 of the paths: one
+    theta, both sides of a block's 32, and more than 180."""
+    rng = np.random.default_rng(n_theta)
+    h, w, numrho = 120, 90, 421
+    xs = torch.from_numpy(rng.integers(0, w, (3, 700)).astype(np.int32))
+    ys = torch.from_numpy(rng.integers(0, h, (3, 700)).astype(np.int32))
+    counts = torch.tensor([700, 0, 333], dtype=torch.int32)
+    angles = torch.arange(n_theta, dtype=torch.float64) * (np.pi / n_theta)
+    args = [xs, ys, counts, torch.cos(angles).float(), torch.sin(angles).float()]
+    out = _count("hough_votes", lambda: kernels.hough_votes(
+        *(a.to(cuda_device) for a in args), numrho, (numrho - 1) // 2))
+    assert torch.equal(out.cpu(), kernels.hough_votes_ref(*args, numrho, (numrho - 1) // 2))
+
+
+@pytest.mark.cuda
+def test_hough_votes_kernel_refuses_rows_past_shared_memory(cuda_device):
+    """A numrho whose row no block's shared memory holds is an error, not
+    a wrong answer."""
+    xs = torch.zeros((1, 4), dtype=torch.int32, device=cuda_device)
+    counts = torch.tensor([4], dtype=torch.int32, device=cuda_device)
+    cos_t, sin_t = (torch.from_numpy(a).to(cuda_device) for a in hough.hough_tables())
+    with pytest.raises(RuntimeError):
+        kernels.hough_votes(xs, xs, counts, cos_t, sin_t, 200001, 100000)
+
+
 # ---------------------------------------------------------------------------
 # the night and morph_seq kernels, at small and odd shapes
 # ---------------------------------------------------------------------------
@@ -171,6 +220,34 @@ def test_gauss_sep_split_form_on_card(cuda_device, shape, mode, ksize, C):
         return
     out = _count("gauss_chain", lambda: kernels.gauss_chain(x.to(cuda_device), ksize, mode, C))
     assert torch.equal(out.cpu(), kernels.gauss_chain_ref(x, ksize, mode, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", synth.BLUR_STRESS_SHAPES)
+@pytest.mark.parametrize("ksize", synth.BLUR_STRESS_KSIZES)
+def test_gauss_sep_kernel_on_stress_shapes(cuda_device, shape, ksize):
+    """An odd width, a width of 1, planes narrower and shorter than the
+    radius, one row, sizes no tile or register block divides; ksize 1 to
+    the widest tiled one and the split form's first; every mode."""
+    x = torch.from_numpy(synth.blur_stress_planes(shape))
+    out = _count("gaussian_blur_u8", lambda: kernels.gaussian_blur_u8(x.to(cuda_device), ksize))
+    assert torch.equal(out.cpu(), kernels.gaussian_blur_u8_ref(x, ksize))
+    for mode, C in synth.CHAIN_STRESS_MODES:
+        out = _count("gauss_chain",
+                     lambda: kernels.gauss_chain(x.to(cuda_device), ksize, mode, C))
+        assert torch.equal(out.cpu(), kernels.gauss_chain_ref(x, ksize, mode, C)), mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksize,sigma", [(3, 0.01), (5, 0.2), (43, 0.3), (9, 0.5)])
+def test_gaussian_blur_u8_with_a_tap_of_256_on_card(cuda_device, ksize, sigma):
+    """A tiny sigma puts 256 (or nearly all of it) on the centre tap."""
+    from tpuimage_torch.ops.filters import gaussian_kernel_q8
+    assert gaussian_kernel_q8(ksize, sigma).max() >= 200
+    x = torch.from_numpy(synth.blur_stress_planes((2, 70, 849)))
+    out = _count("gaussian_blur_u8",
+                 lambda: kernels.gaussian_blur_u8(x.to(cuda_device), ksize, sigma))
+    assert torch.equal(out.cpu(), kernels.gaussian_blur_u8_ref(x, ksize, sigma))
 
 
 @pytest.mark.cuda

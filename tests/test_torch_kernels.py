@@ -381,6 +381,93 @@ def test_rank_extract_ref_matches_pallas(rng, density, tight):
     np.testing.assert_array_equal(t.numpy(), ref)
 
 
+# ---------------------------------------------------------------------------
+# the inputs the card holds hough_votes and the Gaussian kernels to
+# (tpuimage_torch.synth's stress cases): the plain versions the card
+# compares against are held to tpuimage on the same inputs here. Exact.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["rows_and_columns", "every_pixel_capped"])
+def test_hough_votes_ref_on_stress_lists_matches_xla(case):
+    """Whole rows and columns of edges, and a list capped below its count
+    (tpuimage keeps the lowest flat indices too), against tpuimage's CPU
+    path on the maps the lists came from."""
+    _, xs, ys, counts, h, w = next(c for c in synth.hough_stress_cases() if c[0] == case)
+    k = xs.shape[1]
+    cos_np, sin_np = hough.hough_tables()
+    numrho = (h + w) * 2 + 1
+    ours = kernels.hough_votes_ref(*(torch.from_numpy(a) for a in (xs, ys, counts, cos_np,
+                                                                    sin_np)),
+                                   numrho, (numrho - 1) // 2).numpy()
+    assert (counts > k).any() == (case == "every_pixel_capped")
+    np.testing.assert_array_equal(ours.sum(axis=1), np.repeat(
+        np.minimum(counts, k)[:, None], 180, axis=1))
+    for b in range(xs.shape[0]):
+        if case == "every_pixel_capped":     # the whole map, of which k edges are kept
+            edges = np.zeros((h, w), np.uint8)
+            edges[:40 if b else h] = 255
+        else:
+            edges = np.zeros((h, w), np.uint8)
+            edges[ys[b, :counts[b]], xs[b, :counts[b]]] = 255
+        ref = jhough.hough_accumulator(jnp.asarray(edges), max_edges=k, impl="xla")
+        np.testing.assert_array_equal(ours[b], np.asarray(ref))
+
+
+@pytest.mark.parametrize("shape", [(37, 1), (13, 9), (1, 40)])
+@pytest.mark.parametrize("ksize", [1, 3, 43])
+def test_gauss_refs_on_stress_shapes_match_pallas(shape, ksize):
+    """A width of 1, a plane narrower and shorter than the radius, one row;
+    ksize 1 and 3 and the chain's 43: every mode against tpuimage's Pallas
+    kernels, interpreted."""
+    for x in synth.blur_stress_planes((2,) + shape):
+        t = torch.from_numpy(x[None])
+        np.testing.assert_array_equal(
+            kernels.gaussian_blur_u8_ref(t, ksize)[0].numpy(),
+            np.asarray(gaussian_blur_u8_pallas(jnp.asarray(x), ksize, interpret=True)))
+        for mode, C in synth.CHAIN_STRESS_MODES:
+            ref = gauss_chain_pallas(jnp.asarray(x), ksize, mode, C=C, interpret=True)
+            np.testing.assert_array_equal(
+                kernels.gauss_chain_ref(t, ksize, mode, C)[0].numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.01, 0.2, 0.5, 3.0])
+def test_q8_taps_match_tpuimage_and_are_weights(sigma):
+    """The Gaussian kernels take Q8.8 taps that are >= 0 and sum to 256
+    (what the wrapper checks): then the f32 sums are exact and a row sum
+    fits 16 bits. Every odd ksize up to 255 and the split form's 257, taps
+    equal to tpuimage's; a tiny sigma puts all 256 on the centre tap."""
+    from tpuimage.ops.filters import gaussian_kernel_q8 as jax_q8
+    from tpuimage_torch.ops.filters import gaussian_kernel_q8
+    for ksize in range(1, 259, 2):
+        taps = gaussian_kernel_q8(ksize, sigma)
+        np.testing.assert_array_equal(taps, np.asarray(jax_q8(ksize, sigma)))
+        assert kernels.q8_taps_are_weights(taps), (ksize, sigma, taps.min(), taps.sum())
+    if sigma == 0.01:
+        assert gaussian_kernel_q8(3, sigma).tolist() == [0, 256, 0]
+    assert not kernels.q8_taps_are_weights(np.array([-1, 258, -1]))
+    assert not kernels.q8_taps_are_weights(np.array([64, 129, 64]))
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.01, 0.2, 0.5, 3.0])
+def test_q8_taps_fit_bytes_or_are_one_tap_of_256(sigma):
+    """The tensor-core form keeps the taps as bytes: a tap above 255 is 256,
+    sits alone (ksize 1, a tiny sigma) and makes the blur the identity,
+    which is how the kernel treats it; tpuimage's taps agree."""
+    from tpuimage.ops.filters import gaussian_kernel_q8 as jax_q8
+    from tpuimage_torch.ops.filters import gaussian_kernel_q8
+    big = 0
+    for ksize in range(1, 259, 2):
+        taps = gaussian_kernel_q8(ksize, sigma)
+        if taps.max() > 255:
+            big += 1
+            assert np.array_equal(taps, np.asarray(jax_q8(ksize, sigma)))
+            assert taps[ksize // 2] == 256 and np.count_nonzero(taps) == 1
+            x = torch.from_numpy(synth.blur_stress_planes((2, 13, 9)))
+            assert torch.equal(kernels.gaussian_blur_u8_ref(x, ksize, sigma), x)
+    assert big >= 1                                  # ksize 1 at every sigma
+    assert (big > 1) == (sigma in (0.01, 0.2))
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -560,13 +560,26 @@ def _scratch(dev: torch.device, nbytes: int) -> Optional[int]:
     return torch.empty(nbytes, dtype=torch.uint8, device=dev).data_ptr() if nbytes else None
 
 
+def q8_taps_are_weights(taps: np.ndarray) -> bool:
+    """Whether the Gaussian kernels may take these Q8.8 taps: >= 0 and
+    summing to 256. Then every partial sum of both passes is an integer of
+    at most 255 * 65536 < 2**24 (exact in f32 in any order), a row sum fits
+    16 bits, and a tap that does not fit a byte is 256 with every other tap
+    0, which the tensor-core form treats as the shift it is."""
+    return bool(taps.min() >= 0 and int(taps.sum()) == 256)
+
+
 @functools.lru_cache(maxsize=None)
 def _gauss_taps(ksize: int, sigma: float, kind: str, device: str) -> torch.Tensor:
     """The kernel's taps on ``device``, made once per (ksize, sigma, kind,
     device): OpenCV's Q8.8 integers (``kind="q8"``) or the f32 taps of
     the adaptive mean (``"f32"``), so a call copies nothing to the card."""
     if kind == "q8":
-        return torch.from_numpy(gaussian_kernel_q8(ksize, sigma).astype(np.int32)).to(device)
+        taps = gaussian_kernel_q8(ksize, sigma).astype(np.int32)
+        if not q8_taps_are_weights(taps):
+            raise ValueError(f"gaussian taps (ksize {ksize}, sigma {sigma}) are not "
+                             "non-negative Q8.8 weights summing to 256")
+        return torch.from_numpy(taps).to(device)
     taps = get_gaussian_kernel(ksize, sigma).astype(np.float32)
     if not np.array_equal(taps, taps[::-1]):
         raise ValueError("the adaptive mean's taps must be symmetric")

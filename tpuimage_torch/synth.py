@@ -188,3 +188,95 @@ def night_scene(seed: int, height: int = 853, width: int = 1280) -> np.ndarray:
         rgb[y0:y1, x0:x1] += glow[..., None] * np.array([1.0, 0.78, 0.45])
     rgb += rng.normal(0.0, 3.0, size=rgb.shape)
     return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# inputs chosen to break a kernel, for the card tests and the card run
+# ---------------------------------------------------------------------------
+
+def edge_lists(edge_maps, k: int):
+    """(B, H, W) boolean maps -> (xs, ys, counts): each map's edges in
+    row-major order as (B, K) int32 coordinate lists, K = min(k, the
+    largest count) and at least 1, 0 past a map's kept edges, and the
+    (B,) int32 counts as found (so a count may exceed K, which caps it)."""
+    found = [np.nonzero(m) for m in edge_maps]
+    counts = np.array([len(ys) for ys, _ in found], np.int32)
+    width = max(min(k, int(counts.max(initial=0))), 1)
+    xs = np.zeros((len(found), width), np.int32)
+    ys = np.zeros_like(xs)
+    for b, (yy, xx) in enumerate(found):
+        n = min(len(yy), width)
+        xs[b, :n], ys[b, :n] = xx[:n], yy[:n]
+    return xs, ys, counts
+
+
+def hough_stress_cases(seed: int = 0):
+    """Coordinate lists that stress a Hough vote kernel, as (name, xs, ys,
+    counts, height, width): whole rows and whole columns of edges (at theta
+    90 a whole warp of the row-major list votes for one bin, at theta 0 a
+    column does); every pixel an edge with the list capped below the count;
+    lists of 0, 1, 31, 32, 33 and 65 edges around the warp size, on one row
+    and scattered; a sparse 1600x1200 map with a full row, a full column
+    and a diagonal (the photo's numrho); 24 maps of 2400x1800 whose edges
+    span the whole map (more maps than a kernel with a block per
+    multiprocessor can share its blocks among, and rho rows that fit
+    shared memory only a few thetas at a time), one of them empty; and
+    1030 tiny maps (a batch past any per-image bookkeeping)."""
+    rng = np.random.default_rng(seed)
+    lines = np.zeros((2, 240, 320), bool)
+    lines[0, [10, 11, 100, 239]] = True
+    lines[0][:, [0, 5, 6, 200]] = True
+    lines[1, 77] = True
+    yield ("rows_and_columns", *edge_lists(lines, 10 ** 6), 240, 320)
+    full = np.ones((2, 96, 128), bool)
+    full[1, 40:] = False
+    yield ("every_pixel_capped", *edge_lists(full, 5000), 96, 128)
+    sizes = [0, 1, 31, 32, 33, 65]
+    xs = np.zeros((2 * len(sizes), 65), np.int32)
+    ys = np.zeros_like(xs)
+    for i, n in enumerate(sizes):
+        xs[i, :n], ys[i, :n] = np.arange(n) + 3, 17            # one row
+        xs[len(sizes) + i, :n] = rng.integers(0, 80, n)         # scattered
+        ys[len(sizes) + i, :n] = rng.integers(0, 60, n)
+    yield ("counts_around_a_warp", xs, ys, np.array(sizes * 2, np.int32), 60, 80)
+    photo = rng.random((1, 1600, 1200)) < 0.01
+    photo[0, 801] = True
+    photo[0][:, 1199] = True
+    photo[0, np.arange(1200), np.arange(1200)] = True
+    yield ("photo_numrho", *edge_lists(photo, 10 ** 6), 1600, 1200)
+    n = 1500
+    xs, ys = rng.integers(0, 1800, (24, n)), rng.integers(0, 2400, (24, n))
+    xs[:, :2], ys[:, :2] = (0, 1799), (0, 2399)                 # the map's corners
+    counts = np.full(24, n, np.int32)
+    counts[5] = 0
+    yield ("many_large_maps", xs.astype(np.int32), ys.astype(np.int32), counts, 2400, 1800)
+    counts = rng.integers(0, 6, 1030).astype(np.int32)
+    yield ("many_tiny_maps", rng.integers(0, 8, (1030, 5)).astype(np.int32),
+           rng.integers(0, 8, (1030, 5)).astype(np.int32), counts, 8, 8)
+
+
+# (B, H, W) shapes for a separable blur: an odd width with rows off every
+# word boundary and a height that no tile or register block divides; a
+# width of 1; a plane narrower and shorter than most radii; one row; and a
+# plane just past one tile in both directions
+BLUR_STRESS_SHAPES = ((2, 70, 849), (2, 37, 1), (3, 13, 9), (1, 1, 40), (2, 67, 131))
+# the smallest kernels; the last and the first ksize of each step count of
+# the tensor-core form (17 | 19, 49 | 51, 81) and the first of the
+# sliding-window form behind it (83), the post-warp chain's 43 and 51 among
+# them; the widest tiled one and the first of the split form
+BLUR_STRESS_KSIZES = (1, 3, 17, 19, 43, 49, 51, 81, 83, 255, 257)
+# every (mode, C) of gauss_chain: the adaptive threshold with and without
+# an offset
+CHAIN_STRESS_MODES = (("divide", 0.0), ("subtract", 0.0), ("sub", 0.0), ("adaptive", 3.0),
+                      ("adaptive", 0.0))
+
+
+def blur_stress_planes(shape, seed: int = 0) -> np.ndarray:
+    """(B, H, W) uint8: random bytes, with the second plane (if any) a
+    two-level checkerboard, whose means sit on rounding ties."""
+    rng = np.random.default_rng(seed + shape[1] * shape[2])
+    x = rng.integers(0, 256, shape, dtype=np.uint8)
+    if shape[0] > 1:
+        yy, xx = np.mgrid[:shape[1], :shape[2]]
+        x[1] = 100 + (yy + xx) % 2
+    return x
