@@ -13,26 +13,30 @@ Phases (any failure raises and the exit code is non-zero):
    versions, and the nvcc build of tpuimage_torch/csrc/*.cu;
 2. DocScanner's kernels against their plain PyTorch versions on the card,
    at the paths' shapes (exact equality), with the median CUDA-event
-   time of one call of each (from runs of 20 calls back to back; 5 or 2
-   for the slower plain versions), the least time the card could take
-   (bound) and, where PyTorch has one call or a two-call composition for
+   time of one call of each from runs of 20 eager calls (5 or 2 for the
+   slower plain versions; the kernel's also from replays of a CUDA graph
+   of 20 calls, its time without the host's launch cost, as ``graph_ms``),
+   the least time the card could take (bound) and, where PyTorch has one
+   call or a short composition of calls for
    the same function, its time: hist256 and hough_votes; rank_extract on
    the same edge maps (each page one band, and tpuimage's 128-band
    layout), beside the earlier nonzero compaction's time; the post-warp
    chain's gauss_chain (divide k=43, sub k=51, adaptive block 31),
    gaussian_blur_u8 (k=43 and 51, and the wide 83 and 255), blackhat_rect
-   (9x19) and
-   inkmask_weighted on 8 synthetic A4 pages of 1200x849, the divide
+   (9x19; library: max_pool2d, 2-D or separable, the faster) and
+   inkmask_weighted (library: compares, max_pool2d, where) on 8 synthetic
+   A4 pages of 1200x849, the divide
    epilogue on all 65,536 pairs, and the split forms of the four kernels
    (windows too wide for their tiles: ksize 257, a 129x255 rectangle, 9
    dilations), exact but not timed; bilateral on 8 gray photos of
    1600x1200 (the preprocess, d 9, 75/75), one 12 MP gray photo, 8 colour
-   images of 1280x853 (d 9, 100/75) and, exact only, face's d -1, 30/10
-   (radius 15) on 2 colour images; hough_votes and the separable Gaussian
+   images of 1280x853 (d 9, 100/75) and face's d -1, 30/10 (radius 15) on
+   2 colour images; hough_votes and the separable Gaussian
    (gauss_chain, gaussian_blur_u8) also on inputs chosen to break them
    (``synth.hough_stress_cases``, ``synth.BLUR_STRESS_SHAPES``; exact, not
-   timed), their times beside those of the direct designs they replaced,
-   and hough_votes on random coordinates of the same lengths (its floor
+   timed), their times beside those of the direct designs they replaced
+   (so too blackhat_rect's and hist256's, redesigned later), and
+   hough_votes on random coordinates of the same lengths (its floor
    without runs of equal bins);
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
    documents, one with tilted text, and one with no page), with the
@@ -42,7 +46,8 @@ Phases (any failure raises and the exit code is non-zero):
    timed and profiled; then the ``filters.gaussian_blur_u8`` op
    (cv2.GaussianBlur, which no stage of ``scan_batch`` calls) on the 8
    gray pages, counted as a path of its own;
-4. card against host: two of those requests again on the CPU;
+4. card against host: two of those requests again on the CPU, and
+   ``_pre_deskew_stages`` with ``thresh_method="mean"`` on 2 of the pages;
 5. ``process_document`` on two of the photos (a quad page and the
    page-less one; in memory, no stage files: the card machine has no
    PIL), counted, timed per document and held against the host;
@@ -56,7 +61,8 @@ Phases (any failure raises and the exit code is non-zero):
    slices' shapes: rgb_to_lab and clahe_apply on 8 synthetic night scenes
    of 1280x853 (the reference's nightview.png), hist256 on their 512 CLAHE
    tile rows and on morph_seq's eroded planes, gray_erode3 and
-   binary_close3 on 8 RGB document photos of 963x1280 (its sample.jpg);
+   binary_close3 on 8 RGB document photos of 963x1280 (its sample.jpg;
+   library: their erosion / closing as max_pool2d, 2-D or separable);
 8. the paths: ``night_rgb_batch``, ``night_gray_batch`` and
    ``morphseq_batch`` on those inputs, each with the counters reset just
    before and read just after, their MP/s, and a profiled window (device
@@ -71,6 +77,7 @@ tpuimage_torch/_build/.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -101,10 +108,15 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 PRE_DESKEW_KERNELS = ("gauss_chain", "blackhat_rect", "inkmask_weighted")
 # card ms (lowest, highest of four runs) of the first, direct designs of
 # hough_votes and the separable Gaussian at phase 2's shapes, before their
-# redesign: NVIDIA H100 80GB HBM3, 700.00 W (PERF.md's kernel table). The
-# two wide blurs: that design's source built and timed beside the redesign
-# by tpuimage_torch/tools/time_gauss_sep.py, one call on the same card
-DIRECT_DESIGN_MS = {"hough_votes deskew": (0.1400, 0.1451),
+# redesign: NVIDIA H100 80GB HBM3, 700.00 W (PERF.md's kernel table), as
+# 20 eager calls, the way _compare's "ms" times the new ones. The two wide
+# blurs: that design's source built and timed beside the redesign by
+# tpuimage_torch/tools/time_kernel_builds.py, one call on the same card.
+# blackhat_rect (direct windows) and hist256 (warp-aggregated, its zeroing
+# launch included), the first designs, likewise
+DIRECT_DESIGN_MS = {"hist256 18 A4 planes": (0.0700, 0.0727),
+                    "blackhat_rect": (0.1923, 0.2012),
+                    "hough_votes deskew": (0.1400, 0.1451),
                     "hough_votes localize": (0.1710, 0.1801),
                     "gauss_chain divide": (0.2507, 0.2595),
                     "gauss_chain sub": (0.2813, 0.2855),
@@ -140,6 +152,36 @@ def _cuda_ms(fn, reps: int = 10, calls: int = 1) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _graph_ms(fn, reps: int = 5, calls: int = 20) -> float:
+    """Median CUDA-event time of one call of fn, from replays of a CUDA
+    graph that holds ``calls`` calls: the card's time for a kernel without
+    the host's cost of launching it, which exceeds the device time of the
+    fastest kernels (``_cuda_ms`` of eager calls then reads the host). For
+    the record beside the eager time, not instead of it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm: caches, the build, tables
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
     return statistics.median(times)
 
 
@@ -221,27 +263,28 @@ def _exact(name, kernel_fn, plain_fn):
     return outs, err
 
 
-def _compare(name, kernel_fn, plain_fn, bound: dict, library_fn=None,
-             plain_calls: int = 20) -> dict:
+def _compare(name, kernel_fn, plain_fn, bound: dict, library_fns=(),
+             plain_calls: int = 20, library_output: int = 0) -> dict:
     """``_exact``, then times the kernel and its plain version and returns
-    the kernel's record. ``library_fn``, where PyTorch has one call (or a
-    two-call composition) for the same function, must give the kernel's
-    first output too, and is timed as the library yardstick. A plain
-    version that takes tens of ms a call is timed over ``plain_calls``."""
+    the kernel's record. ``library_fns``, where PyTorch has one call (or a
+    short composition of its calls) for the same function, must each give
+    the kernel's output number ``library_output`` too; the fastest is the
+    library yardstick. A plain version that takes tens of ms a call is
+    timed over ``plain_calls``."""
     outs, err = _exact(name, kernel_fn, plain_fn)
-    library_ms = None
-    if library_fn is not None:
-        lib_out = library_fn()
-        if not torch.equal(lib_out.to(torch.int64), outs[0].to(torch.int64)):
-            raise AssertionError(f"{name}: the library yardstick computes another function")
-        library_ms = _cuda_ms(library_fn, reps=5, calls=20)
+    library = []
+    for fn in library_fns:
+        if not torch.equal(fn().to(torch.int64), outs[library_output].to(torch.int64)):
+            raise AssertionError(f"{name}: a library yardstick computes another function")
+        library.append(_cuda_ms(fn, reps=5, calls=20))
     rec = {"max_abs_err": err, "ms": _cuda_ms(kernel_fn, reps=5, calls=20),
            "plain_ms": _cuda_ms(plain_fn, reps=5 if plain_calls > 2 else 3, calls=plain_calls),
-           **bound, "library_ms": library_ms}
-    print(f"{name}: shape {tuple(outs[0].shape)} exact; kernel {rec['ms']:.4f} ms, "
-          f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})" + ("" if library_ms is None else
-                                   f", library {library_ms:.4f} ms"))
+           **bound, "library_ms": min(library) if library else None,
+           "graph_ms": _graph_ms(kernel_fn)}
+    print(f"{name}: shape {tuple(outs[0].shape)} exact; kernel {rec['ms']:.4f} ms "
+          f"({rec['graph_ms']:.4f} ms from a CUDA graph), plain {rec['plain_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+          + (f", library {' / '.join(f'{t:.4f}' for t in library)} ms" if library else ""))
     return rec
 
 
@@ -258,8 +301,8 @@ def _sub_record(rec: dict, what: str, sub: dict) -> None:
     """Fold the record of one more shape or mode of a kernel into its
     record under ``what``."""
     rec["max_abs_err"] = max(rec["max_abs_err"], sub["max_abs_err"])
-    rec.update({f"{what}_{k}": sub[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
-                if sub[k] is not None})
+    rec.update({f"{what}_{k}": sub[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                "graph_ms") if sub[k] is not None})
 
 
 def _compact_edges_nonzero(edges: torch.Tensor, k: int):
@@ -358,6 +401,23 @@ def _same_result(a: dict, b: dict) -> bool:
     return True
 
 
+def _pool_max(x: torch.Tensor, kh: int, kw: int, separable: bool) -> torch.Tensor:
+    """The max over a kh x kw window (kw, kh odd) of each plane of a float
+    (B, H, W) tensor, clipped to the plane (``max_pool2d`` pads with -inf):
+    one 2-D ``max_pool2d``, or a (kh, 1) and a (1, kw) one."""
+    pool = torch.nn.functional.max_pool2d
+    if separable:
+        return pool(pool(x, (kh, 1), 1, (kh // 2, 0)), (1, kw), 1, (0, kw // 2))
+    return pool(x, (kh, kw), 1, (kh // 2, kw // 2))
+
+
+def _pool_close(x: torch.Tensor, kh: int, kw: int, separable: bool) -> torch.Tensor:
+    """close = erode(dilate(x)) with a kh x kw rectangle and the kernels'
+    borders (0 for the dilation, 255 for the erosion: the window clipped to
+    the plane) as ``max_pool2d`` calls."""
+    return -_pool_max(-_pool_max(x, kh, kw, separable), kh, kw, separable)
+
+
 def _conv_blur_u8(padded: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """cv2.GaussianBlur 8u as PyTorch's own convolution: two 1-D f32
     ``conv2d`` passes over the reflect-padded plane (TF32 off, so the
@@ -419,8 +479,9 @@ def main() -> int:
         f"hist256 (sub_raw/bh_raw planes of {N_REQUESTS} A4 pages + random + constant)",
         lambda: kernels.hist256_batch(planes), lambda: kernels.hist256_batch_ref(planes),
         _hist256_bound(planes),
-        lambda: torch.bincount(offset_rows, minlength=planes.shape[0] * 256
-                               ).view(planes.shape[0], 256))}
+        [lambda: torch.bincount(offset_rows, minlength=planes.shape[0] * 256
+                                ).view(planes.shape[0], 256)])}
+    _beside_direct_design("hist256 18 A4 planes", records["hist256"])
     del offset_rows
 
     weighted = docscan._pre_deskew_stages(pages_d, cfg)["weighted"]
@@ -540,7 +601,7 @@ def main() -> int:
             f"two cudnn conv2d 1-D passes + rounding)",
             lambda x=x, k=k: kernels.gaussian_blur_u8(x, k),
             lambda x=x, k=k: kernels.gaussian_blur_u8_ref(x, k), q8_bound(k),
-            lambda padded=padded, taps=taps: _conv_blur_u8(padded, taps))
+            [lambda padded=padded, taps=taps: _conv_blur_u8(padded, taps)])
         del padded
         _beside_direct_design(f"gaussian_blur_u8 k={k}", blur[k])
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
@@ -556,25 +617,42 @@ def main() -> int:
     for k in (mk, *WIDE_BLUR_KSIZES):
         _sub_record(records["gaussian_blur_u8"], f"k{k}", blur[k])
     bk_h, bk_w = docscan.blackhat_se(cfg).shape
+    stretched_f = stretched.to(torch.float16)
     # four 1-D extremes of ~3 compares per pixel (van Herk), the subtract and clamp
     records["blackhat_rect"] = _compare(
-        f"blackhat_rect {bk_w}x{bk_h} ({N_REQUESTS} stretched A4 planes)",
+        f"blackhat_rect {bk_w}x{bk_h} ({N_REQUESTS} stretched A4 planes; library: "
+        "relu(-max_pool2d(-max_pool2d(x)) - x) on the planes in f16, 2-D / separable)",
         lambda: kernels.blackhat_rect(stretched, bk_w, bk_h),
         lambda: kernels.blackhat_rect_ref(stretched, bk_w, bk_h),
-        _bound(2 * n_px, 14 * n_px))
+        _bound(2 * n_px, 14 * n_px),
+        [lambda sep=sep: torch.relu(_pool_close(stretched_f, bk_h, bk_w, sep) - stretched_f)
+         for sep in (False, True)])
+    _beside_direct_design("blackhat_rect", records["blackhat_rect"])
+    del stretched_f
     hists = kernels.hist256_batch(torch.stack([sub_raw, bh_raw], dim=1)
                                   .reshape(2 * N_REQUESTS, -1)).reshape(-1, 2, 256)
     t_sub = docscan._raw_otsu_threshold(hists[:, 0], cfg.mask_thresh_offset)
     t_bh = docscan._raw_otsu_threshold(hists[:, 1], cfg.mask_thresh_offset)
     adapt = kernels.gauss_chain(stretched, ab, "adaptive", cfg.C)
     it = cfg.ink_dilate_iters
+
+    def inkmask_library():
+        """The two thresholds and their max, ``iters`` 2x2 dilations (anchor
+        at the window's lower right) as ``max_pool2d``, the select."""
+        mask = torch.maximum(sub_raw > t_sub[:, None, None], bh_raw > t_bh[:, None, None]
+                             ).to(torch.float16) * 255
+        for _ in range(it):
+            mask = torch.nn.functional.max_pool2d(mask, 2, 1, 1)[:, :PAGE[0], :PAGE[1]]
+        torch.where(mask == 0, 255, adapt)      # the second output, timed with the first
+        return mask
+
     # two compares and their or, 2 * iters maxima (separable), the select
     records["inkmask_weighted"] = _compare(
         f"inkmask_weighted iters={it} ({N_REQUESTS} A4 planes, thresholds "
-        f"{t_sub.tolist()} / {t_bh.tolist()})",
+        f"{t_sub.tolist()} / {t_bh.tolist()}; library: compares, max_pool2d, where)",
         lambda: kernels.inkmask_weighted(sub_raw, bh_raw, adapt, t_sub, t_bh, it),
         lambda: kernels.inkmask_weighted_ref(sub_raw, bh_raw, adapt, t_sub, t_bh, it),
-        _bound(5 * n_px + 8 * N_REQUESTS, (4 + 2 * it) * n_px))
+        _bound(5 * n_px + 8 * N_REQUESTS, (4 + 2 * it) * n_px), [inkmask_library])
     if not torch.equal(kernels.divide_table(dev).cpu(), kernels.divide_table("cpu")):
         raise AssertionError("the divide epilogue differs from divide_u8 on the card")
     print("divide epilogue: all 65,536 (num, den) pairs equal divide_u8")
@@ -640,10 +718,13 @@ def main() -> int:
         _sub_record(records["bilateral"], what, bil[what])
     face = scenes_c[:2].contiguous()
     radius, taps, space_w, lut = bilateral.tables_on(-1, 30.0, 10.0, 3, dev)
-    _exact("bilateral face", lambda: kernels.bilateral(face, taps, space_w, lut, radius),
-           lambda: kernels.bilateral_ref(face, taps, space_w, lut, radius))
-    print(f"bilateral face d=-1 30/10 (2 colour images {NIGHT[1]}x{NIGHT[0]}, radius "
-          f"{radius}, {taps.shape[0]} taps): exact")
+    bil["face_r15"] = _compare(
+        f"bilateral face d=-1 30/10 (2 colour images {NIGHT[1]}x{NIGHT[0]}, radius {radius}, "
+        f"{taps.shape[0]} taps)",
+        lambda: kernels.bilateral(face, taps, space_w, lut, radius),
+        lambda: kernels.bilateral_ref(face, taps, space_w, lut, radius),
+        _bilateral_bound(face, taps.shape[0]), plain_calls=1)
+    _sub_record(records["bilateral"], "face_r15", bil["face_r15"])
     del gray_photos, phone, scenes_c, face
 
     # --- 3. the main path ----------------------------------------------------
@@ -743,6 +824,16 @@ def main() -> int:
     host = docscan.scan_batch([inputs[i] for i in pick], cfg, device="cpu")
     for i, h in zip(pick, host):
         _card_vs_host(f"request {i}", results[i], h)
+    # the mean adaptive threshold (an integer box filter on plain tensor ops)
+    mean_cfg = dataclasses.replace(cfg, thresh_method="mean")
+    card_mean = docscan._pre_deskew_stages(pages_d[:2], mean_cfg)
+    for k, v in docscan._pre_deskew_stages(pages_d[:2].cpu(), mean_cfg).items():
+        if not torch.equal(card_mean[k].cpu(), v):
+            raise AssertionError(f"_pre_deskew_stages thresh_method='mean': {k} differs "
+                                 "card vs host")
+    print("card vs host, _pre_deskew_stages with thresh_method='mean' on 2 A4 pages: every "
+          "stage equal")
+    del card_mean
 
     # --- 5. process_document: DocScanner's one-document path -----------------
     print(f"[phase 5 at {time.perf_counter() - t_start:.1f} s]")
@@ -863,10 +954,15 @@ def main() -> int:
     docs_d = torch.from_numpy(docs).to(dev)
     n_morph = N_REQUESTS * MORPH[0] * MORPH[1]
     # per pixel: gray (3 MACs, round, shift) and 8 mins
+    gray_f = kernels.gray_erode3(docs_d)[0].to(torch.float16)
     records["gray_erode3"] = _compare(
-        f"gray_erode3 ({N_REQUESTS} RGB document photos {MORPH[1]}x{MORPH[0]})",
+        f"gray_erode3 ({N_REQUESTS} RGB document photos {MORPH[1]}x{MORPH[0]}; library: the "
+        "erosion of the gray planes as -max_pool2d(-x) in f16, 2-D / separable, no gray "
+        "conversion)",
         lambda: kernels.gray_erode3(docs_d), lambda: kernels.gray_erode3_ref(docs_d),
-        _bound(5 * n_morph, 15 * n_morph))
+        _bound(5 * n_morph, 15 * n_morph),
+        [lambda sep=sep: -_pool_max(-gray_f, 3, 3, sep) for sep in (False, True)],
+        library_output=1)
     eroded = kernels.gray_erode3(docs_d)[1]
     rows = eroded.reshape(N_REQUESTS, -1)
     morph_hist = _compare(
@@ -877,16 +973,21 @@ def main() -> int:
     # per pixel: the compare, 8 maxes and 8 mins
     records["binary_close3"] = _compare(
         f"binary_close3 ({N_REQUESTS} eroded planes {MORPH[1]}x{MORPH[0]}, "
-        f"Otsu thresholds {thresh.tolist()})",
+        f"Otsu thresholds {thresh.tolist()}; library: the threshold and max_pool2d in f16, "
+        "2-D / separable)",
         lambda: kernels.binary_close3(eroded, thresh),
         lambda: kernels.binary_close3_ref(eroded, thresh),
-        _bound(3 * n_morph + 4 * N_REQUESTS, 17 * n_morph))
+        _bound(3 * n_morph + 4 * N_REQUESTS, 17 * n_morph),
+        [lambda sep=sep: _pool_close((eroded > thresh[:, None, None]).to(torch.float16) * 255,
+                                     3, 3, sep) for sep in (False, True)],
+        library_output=1)
+    del gray_f
     rec = records["hist256"]
     rec["max_abs_err"] = max(rec["max_abs_err"], clahe_hist["max_abs_err"],
                              morph_hist["max_abs_err"])
     for what, r in (("clahe_tiles", clahe_hist), ("morphseq", morph_hist)):
         rec.update({f"{what}_ms": r["ms"], f"{what}_plain_ms": r["plain_ms"],
-                    f"{what}_bound_ms": r["bound_ms"]})
+                    f"{what}_bound_ms": r["bound_ms"], f"{what}_graph_ms": r["graph_ms"]})
     del eroded, rows
 
     # --- 8. the night and morph_seq paths -----------------------------------

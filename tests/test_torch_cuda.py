@@ -39,10 +39,38 @@ def test_hist256_kernel_on_card(cuda_device, n):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["hist256"] == before + 1
     assert torch.equal(out.cpu(), kernels.hist256_batch_ref(planes))
-    # a row that starts off a 16-byte boundary takes the byte-load variant
+    # rows that start off a 16-byte boundary: their ends are counted byte by byte
     odd = planes.to(cuda_device).reshape(-1)[1:1 + 3 * 1000].reshape(3, 1000)
     assert torch.equal(kernels.hist256_batch(odd).cpu(),
                        kernels.hist256_batch_ref(odd.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_valued", "clahe_tiles", "one_word", "odd_offsets"])
+def test_hist256_kernel_on_edge_rows(cuda_device, case):
+    """Rows of one value (0, 255 and 77), 512 rows of CLAHE's tile length (107 x
+    160 = 17,120 bytes: one block a row), a single 16-byte row, and rows that
+    start off a 16-byte boundary with lengths no multiple of 16 (counted
+    byte by byte at both ends)."""
+    rng = np.random.default_rng(7)
+    if case == "one_valued":
+        rows = np.stack([np.zeros(1200 * 849, np.uint8), np.full(1200 * 849, 255, np.uint8),
+                         np.full(1200 * 849, 77, np.uint8)])
+    elif case == "clahe_tiles":
+        rows = rng.integers(0, 256, (512, 107 * 160), dtype=np.uint8)
+        rows[::3] = np.clip(rows[::3] // 16 + 120, 0, 255)
+    elif case == "one_word":
+        rows = rng.integers(0, 256, (1, 16), dtype=np.uint8)
+    else:
+        flat = torch.from_numpy(rng.integers(0, 256, 5 * 4099 + 3, dtype=np.uint8)).to(cuda_device)
+        for off, n in ((3, 4099), (1, 17), (7, 5), (0, 4099), (2, 1)):
+            x = flat[off:off + 5 * n].view(5, n)
+            out = _count("hist256", lambda: kernels.hist256_batch(x))
+            assert torch.equal(out.cpu(), kernels.hist256_batch_ref(x.cpu())), (off, n)
+        return
+    x = torch.from_numpy(rows)
+    out = _count("hist256", lambda: kernels.hist256_batch(x.to(cuda_device)))
+    assert torch.equal(out.cpu(), kernels.hist256_batch_ref(x))
 
 
 @pytest.mark.cuda
@@ -289,6 +317,25 @@ def test_blackhat_rect_kernel_on_card(cuda_device, a4_planes, kw, kh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 37, w) for w in range(1, 10)]
+                         + [(1, 1, 849), (1, 1200, 1), (3, 1, 1), (1, 70, 849), (2, 5, 300)])
+@pytest.mark.parametrize("kw,kh", [(9, 19), (1, 1), (7, 5), (33, 67), (255, 3), (3, 63)])
+def test_blackhat_rect_kernel_at_edge_shapes(cuda_device, shape, kw, kh):
+    """Widths 1-9 and 849, planes of one row and of one column, rectangles
+    wider or taller than the plane, and every plane starting 1 byte past a
+    word boundary (a contiguous view at an odd offset), so that rows start
+    at every alignment."""
+    b, h, w = shape
+    flat = torch.from_numpy(np.random.default_rng(b * h * w + kw).integers(
+        0, 256, b * h * w + 1, dtype=np.uint8))
+    flat[1::5] = 255
+    x = flat.to(cuda_device)[1:].view(b, h, w)
+    assert x.data_ptr() % 2 == 1
+    out = _count("blackhat_rect", lambda: kernels.blackhat_rect(x, kw, kh))
+    assert torch.equal(out.cpu(), kernels.blackhat_rect_ref(x.cpu(), kw, kh))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("iters", [0, 1, 3, 8, 9, 20])
 def test_inkmask_weighted_kernel_on_card(cuda_device, a4_planes, iters):
     _, _, stretched = a4_planes
@@ -475,3 +522,46 @@ def test_scan_stream_on_card(cuda_device, doc_photos, prefetch):
     for c, h in zip(card, host):
         _assert_same_request(c, h)
         assert c["deskew_angle"] == h["deskew_angle"]
+
+
+# ---------------------------------------------------------------------------
+# NORM_MINMAX (one rounding) and the mean adaptive threshold: card = host
+# ---------------------------------------------------------------------------
+
+def _use_whole_photo_planes():
+    """The gray and divided illumination planes of a 480x360 photo with no
+    page (DocScanner's use-whole input at scale_long 600), on the CPU."""
+    from tpuimage_torch.ops.color import rgb_to_gray
+    from tpuimage_torch.pipelines import docscan
+    gray = rgb_to_gray(torch.from_numpy(synth.document_photo(3, 480, 360, with_page=False)))
+    k = docscan.illum_ksize(480, 360, docscan.GUI_DOCUMENT_CONFIG)
+    return torch.stack([gray, kernels.gauss_chain_ref(gray[None], k, "divide")[0]])
+
+
+@pytest.mark.cuda
+def test_normalize_minmax_on_card_equals_host(cuda_device):
+    from tpuimage_torch.ops import arith
+    x = _use_whole_photo_planes()
+    assert torch.equal(arith.normalize_minmax(x.to(cuda_device)).cpu(), arith.normalize_minmax(x))
+    lo, hi = x.reshape(2, -1).amin(1).float(), x.reshape(2, -1).amax(1).float()
+    assert torch.equal(arith.normalize_minmax_lut(lo.to(cuda_device), hi.to(cuda_device)).cpu(),
+                       arith.normalize_minmax_lut(lo, hi))
+
+
+@pytest.mark.cuda
+def test_pre_deskew_mean_threshold_on_card(cuda_device, a4_planes):
+    """thresh_method="mean" (the integer box filter on plain tensor ops, no
+    kernel) inside _pre_deskew_stages: card = host on every stage."""
+    import dataclasses
+    from tpuimage_torch.pipelines import docscan
+    cfg = dataclasses.replace(docscan.GUI_DOCUMENT_CONFIG, thresh_method="mean")
+    pages = a4_planes[0][:2]
+    host = docscan._pre_deskew_stages(pages, cfg)
+    kernels.reset_launch_counts()
+    out = docscan._pre_deskew_stages(pages.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "gauss_chain": 2, "blackhat_rect": 1, "inkmask_weighted": 1, "hist256": 1}, counts
+    for k, v in host.items():
+        assert torch.equal(out[k].cpu(), v), k

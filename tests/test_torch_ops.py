@@ -132,6 +132,8 @@ def test_divide_u8_full_domain(scale):
 
 
 def test_normalize_minmax_per_plane(rng):
+    """Against the program tpuimage runs: its ops under jax.jit, where XLA
+    fuses ``x * scale + offset`` into one multiply-add."""
     imgs = []
     for _ in range(20):
         lo, hi = sorted(rng.integers(0, 256, 2))
@@ -140,14 +142,57 @@ def test_normalize_minmax_per_plane(rng):
     batch = np.stack(imgs)
     ours = arith.normalize_minmax(_t(batch)).numpy()
     for i, img in enumerate(imgs):
-        np.testing.assert_array_equal(ours[i], _j(jarith.normalize_minmax(jnp.asarray(img))))
+        np.testing.assert_array_equal(ours[i], _jit(jarith.normalize_minmax, jnp.asarray(img)))
     smin = batch.reshape(len(imgs), -1).min(1).astype(np.float32)
     smax = batch.reshape(len(imgs), -1).max(1).astype(np.float32)
     luts = arith.normalize_minmax_lut(_t(smin), _t(smax)).numpy()
     for i in range(len(imgs)):
         np.testing.assert_array_equal(
-            luts[i], _j(jarith.normalize_minmax_lut(jnp.float32(smin[i]), jnp.float32(smax[i]))))
+            luts[i], _jit(jarith.normalize_minmax_lut, jnp.float32(smin[i]), jnp.float32(smax[i])))
         np.testing.assert_array_equal(luts[i][batch[i]], ours[i])
+
+
+def _illum_planes(rgb):
+    """A photo's gray plane and its divided illumination plane (what
+    DocScanner's NORM_MINMAX takes), as tpuimage's XLA ops make them."""
+    from tpuimage_torch.pipelines import docscan
+    gray = color.rgb_to_gray(_t(rgb)).numpy()
+    k = docscan.illum_ksize(*gray.shape, docscan.GUI_DOCUMENT_CONFIG)
+    bg = jfilters.gaussian_blur_u8(jnp.asarray(gray), k, impl="xla")
+    return np.stack([gray, np.asarray(jarith.divide_u8(jnp.asarray(gray), bg, 255.0))])
+
+
+def _minmax_input(name):
+    from tpuimage_torch import synth
+    if name == "A":     # the use-whole photo on which two roundings moved 0.4% of the binary
+        return _illum_planes(synth.document_photo(3, 480, 360, with_page=False))
+    if name == "B":
+        return _illum_planes(synth.page(2, 362, 256, tilt_deg=3.0, rules=4))
+    rng = np.random.default_rng(397)
+    planes = []
+    for _ in range(400):
+        lo, hi = sorted(rng.integers(0, 256, 2))
+        planes.append(rng.integers(lo, hi + 1, (64, 64)).astype(np.uint8))
+    return np.stack(planes)
+
+
+@pytest.mark.parametrize("name", ["A", "B", "C"])
+def test_normalize_minmax_matches_jitted_tpuimage(name):
+    """Inputs A (a 480x360 use-whole photo), B (a tilted 362x256 page) and C
+    (400 random 64x64 planes with random (min, max)), plane by plane,
+    per-pixel form and LUT, exact against jax.jit of tpuimage's ops."""
+    planes = _minmax_input(name)
+    ours = arith.normalize_minmax(_t(planes)).numpy()
+    norm = jax.jit(jarith.normalize_minmax)
+    lut_fn = jax.jit(jarith.normalize_minmax_lut)
+    flat = planes.reshape(len(planes), -1)
+    luts = arith.normalize_minmax_lut(_t(flat.min(1).astype(np.float32)),
+                                      _t(flat.max(1).astype(np.float32))).numpy()
+    for i, x in enumerate(planes):
+        np.testing.assert_array_equal(ours[i], np.asarray(norm(jnp.asarray(x))),
+                                      err_msg=f"plane {i}")
+        ref_lut = np.asarray(lut_fn(jnp.float32(flat[i].min()), jnp.float32(flat[i].max())))
+        np.testing.assert_array_equal(luts[i], ref_lut, err_msg=f"lut {i}")
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +236,31 @@ def test_threshold_binary_and_adaptive(rng):
             threshold.adaptive_threshold(_t(img), 255, "gaussian", bs, c).numpy(),
             _jit(jthresh.adaptive_threshold, jnp.asarray(img), max_value=255,
                  method="gaussian", block_size=bs, C=c))
+
+
+@pytest.mark.parametrize("ksize", [3, 5, 31, 51, 101, 255])
+def test_box_filter_u8(rng, ksize):
+    """Integer window sums with a replicate border, then the f32 scale and
+    cvRound; 51 and up are wider than the 40x37 plane."""
+    img = _smooth_image(rng, 40, 37)
+    img[:3] = 255
+    np.testing.assert_array_equal(
+        filters.box_filter_u8(_t(img[None]), ksize).numpy()[0],
+        _jit(jfilters.box_filter_u8, jnp.asarray(img), ksize=ksize))
+
+
+@pytest.mark.parametrize("method", ["gaussian", "mean"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_adaptive_threshold_methods(rng, method, inverse):
+    img = _smooth_image(rng, 90, 70)
+    for bs, c in ((31, 3), (35, 10), (8, 2.5), (15, -2.5), (3, 0.0)):
+        np.testing.assert_array_equal(
+            threshold.adaptive_threshold(_t(img), 255, method, bs, c, inverse=inverse).numpy(),
+            _jit(jthresh.adaptive_threshold, jnp.asarray(img), max_value=255,
+                 method=method, block_size=bs, C=c, inverse=inverse),
+            err_msg=f"block {bs} C {c}")
+    with pytest.raises(ValueError):
+        threshold.adaptive_threshold(_t(img), 255, "median", 15, 2.0)
 
 
 def test_otsu_from_hist(rng):

@@ -95,7 +95,7 @@
 // 63 KB of shared memory at ksize 43). On 8 A4 planes the Q8.8 blur takes
 // 0.135 / 0.246 / 0.611 ms at ksize 83 / 127 / 255, where the direct form
 // took 0.485 / 0.861 / 3.98 and the split form below takes 1.67 / 2.52 /
-// 5.00 (tools/time_gauss_sep.py, one call on an H100 at 700 W).
+// 5.00 (tools/time_kernel_builds.py gauss_sep, one call on an H100 at 700 W).
 // - Register blocking, both passes. A thread computes kR = 8 consecutive
 //   outputs along the pass from two windows held in registers: for tap pair
 //   j the left window holds x[o - j] and the right one x[o + j] for its 8

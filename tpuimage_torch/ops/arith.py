@@ -1,9 +1,13 @@
 """Saturating uint8 arithmetic and NORM_MINMAX (counterpart of
 ``tpuimage.ops.arith``).
 
-The f32 expressions are written as separate ops in tpuimage's order:
-they match tpuimage only unfused (an FMA moves pixels across cvRound
-boundaries), so no kernel may fuse them without re-checking parity.
+NORM_MINMAX rounds ``x * scale + offset`` once, as the fused multiply-add
+of tpuimage's jitted programs (and cv2's ``convertTo``) does: the f64
+product of a byte and an f32 scale is exact, and so is its sum with the
+f32 offset ``-min * scale`` (alpha 0: both lie on the grid of scale's
+last bit, within 2**40 of it), so one f32 rounding of the f64 value is
+that fused result. Two rounded f32 ops would move pixels across cvRound
+boundaries.
 """
 from __future__ import annotations
 
@@ -52,25 +56,27 @@ def _minmax_scale(smin: torch.Tensor, smax: torch.Tensor, alpha: float,
     return scale, alpha - smin * scale
 
 
-def normalize_minmax(img: torch.Tensor, alpha: float = 0.0,
-                     beta: float = 255.0) -> torch.Tensor:
-    """cv2.normalize(..., alpha, beta, NORM_MINMAX) on each uint8 (H, W)
-    plane of a (..., H, W) tensor."""
-    x = f32(img)
-    smin = torch.amin(x, dim=(-2, -1), keepdim=True)
-    smax = torch.amax(x, dim=(-2, -1), keepdim=True)
-    scale, offset = _minmax_scale(smin, smax, alpha, beta)
-    return saturate_u8(x * scale + offset)
-
-
 def normalize_minmax_lut(smin: torch.Tensor, smax: torch.Tensor,
                          alpha: float = 0.0, beta: float = 255.0) -> torch.Tensor:
     """The NORM_MINMAX map as 256-entry uint8 LUTs: smin/smax of shape
     (...,) give LUTs of shape (..., 256) with ``lut[v]`` equal to
     normalize_minmax's value for a pixel of value v. Monotone
     non-decreasing, which lets callers pull thresholds back to the raw
-    plane."""
+    plane. Each entry is ``v * scale + offset`` rounded once (the module
+    docstring)."""
     smin, smax = f32(smin)[..., None], f32(smax)[..., None]
     scale, offset = _minmax_scale(smin, smax, alpha, beta)
-    v = torch.arange(256, dtype=torch.float32, device=smin.device)
-    return saturate_u8(v * scale + offset)
+    v = torch.arange(256, dtype=torch.float64, device=smin.device)
+    return saturate_u8((v * scale.double() + offset.double()).to(torch.float32))
+
+
+def normalize_minmax(img: torch.Tensor, alpha: float = 0.0,
+                     beta: float = 255.0) -> torch.Tensor:
+    """cv2.normalize(..., alpha, beta, NORM_MINMAX) on each uint8 (H, W)
+    plane of a (..., H, W) tensor: each plane's :func:`normalize_minmax_lut`
+    gathered per pixel, so the two forms are one expression."""
+    if img.dtype != torch.uint8:
+        raise TypeError(f"normalize_minmax: expected torch.uint8, got {img.dtype}")
+    rows = img.reshape(-1, img.shape[-2] * img.shape[-1])
+    lut = normalize_minmax_lut(torch.amin(rows, dim=1), torch.amax(rows, dim=1), alpha, beta)
+    return torch.gather(lut, 1, rows.to(torch.int64)).reshape(img.shape)

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuimage_torch.core.borders import BORDER_REFLECT_101, pad2d
-from tpuimage_torch.core.dtypes import f32
+from tpuimage_torch.core.borders import BORDER_REFLECT_101, BORDER_REPLICATE, pad2d
+from tpuimage_torch.core.dtypes import f32, i32, saturate_u8
 
 # Fixed binary kernels OpenCV uses for sigma<=0, ksize<=7 (small_gaussian_tab)
 _SMALL_GAUSSIAN = {
@@ -130,3 +130,25 @@ def gaussian_blur_f32(img: torch.Tensor, ksize: int = 0, sigma: float = 0.0,
     r = ksize // 2
     p = pad2d(f32(img), r, r, r, r, mode=border)
     return _sepconv_valid_f32(p, k, k)
+
+
+def _window_sums(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """Sums of every k consecutive int32 values along ``dim`` (a 'valid'
+    box of length k), from one exact integer prefix sum."""
+    c = torch.cumsum(x, dim=dim, dtype=torch.int32)
+    n = x.shape[dim] - k + 1
+    first = c.narrow(dim, k - 1, 1)
+    return torch.cat([first, c.narrow(dim, k, n - 1) - c.narrow(dim, 0, n - 1)], dim=dim)
+
+
+def box_filter_u8(img: torch.Tensor, ksize: int,
+                  border: str = BORDER_REPLICATE) -> torch.Tensor:
+    """Normalized cv2.boxFilter on each uint8 (H, W) plane (the
+    ADAPTIVE_THRESH_MEAN_C mean): the exact integer window sum, times
+    ``float32(1 / ksize**2)`` in f32, cvRounded, as tpuimage's. Plain
+    tensor ops on every device: tpuimage has no kernel for it."""
+    r = ksize // 2
+    p = pad2d(i32(img), r, ksize - 1 - r, r, ksize - 1 - r, mode=border)
+    s = _window_sums(_window_sums(p, ksize, -2), ksize, -1)
+    inv_area = torch.tensor(1.0 / (ksize * ksize), dtype=torch.float32, device=img.device)
+    return saturate_u8(f32(s) * inv_area)

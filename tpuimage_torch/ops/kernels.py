@@ -239,9 +239,9 @@ def hist256_batch(x: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return hist256_batch_ref(x)
     b, n = x.shape
-    out = torch.zeros((b, 256), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
-        return out
+        return torch.zeros((b, 256), dtype=torch.int32, device=dev)
+    out = torch.empty((b, 256), dtype=torch.int32, device=dev)   # the kernel writes every count
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.tpuimage_hist256(x.data_ptr(), out.data_ptr(), b, n, _stream(dev))

@@ -7,7 +7,7 @@ import torch
 
 from tpuimage_torch.core.borders import BORDER_REPLICATE
 from tpuimage_torch.core.dtypes import f32, i32, saturate_u8
-from tpuimage_torch.ops.filters import gaussian_blur_f32
+from tpuimage_torch.ops.filters import box_filter_u8, gaussian_blur_f32
 
 
 def threshold_binary(gray: torch.Tensor, thresh, maxval: int = 255) -> torch.Tensor:
@@ -29,19 +29,26 @@ def threshold_otsu(gray: torch.Tensor, maxval: int = 255):
 
 def adaptive_threshold(gray: torch.Tensor, max_value: int = 255,
                        method: str = "gaussian", block_size: int = 35,
-                       C: float = 10.0) -> torch.Tensor:
-    """cv2.adaptiveThreshold THRESH_BINARY, ADAPTIVE_THRESH_GAUSSIAN_C, on
-    each (H, W) plane: the mean is an f32 Gaussian blur with a CV_32F
-    kernel and a replicate border, cvRounded to uint8; the test is
-    ``src - mean > -ceil(C)``."""
-    if method != "gaussian":
-        raise NotImplementedError(f"adaptive_threshold method {method!r}")
+                       C: float = 10.0, inverse: bool = False) -> torch.Tensor:
+    """cv2.adaptiveThreshold on each (H, W) plane, THRESH_BINARY (or
+    THRESH_BINARY_INV with ``inverse``). GAUSSIAN_C: the mean is an f32
+    Gaussian blur with a CV_32F kernel and a replicate border, cvRounded
+    to uint8; MEAN_C ("mean"): :func:`box_filter_u8`. The test is
+    ``src - mean > -idelta`` (``<=`` when inverted), idelta = ceil(C)
+    (floor(C) when inverted)."""
+    if method not in ("gaussian", "mean"):
+        raise ValueError(f"adaptive_threshold: method must be 'gaussian' or 'mean', "
+                         f"got {method!r}")
     if block_size % 2 == 0:
         block_size += 1
-    mean = saturate_u8(gaussian_blur_f32(f32(gray), ksize=block_size,
-                                         border=BORDER_REPLICATE))
-    idelta = math.ceil(C)
+    if method == "gaussian":
+        mean = saturate_u8(gaussian_blur_f32(f32(gray), ksize=block_size,
+                                             border=BORDER_REPLICATE))
+    else:
+        mean = box_filter_u8(gray, block_size, border=BORDER_REPLICATE)
+    idelta = math.floor(C) if inverse else math.ceil(C)
     diff = i32(gray) - i32(mean)
-    return torch.where(diff > -idelta,
+    hit = diff <= -idelta if inverse else diff > -idelta
+    return torch.where(hit,
                        torch.tensor(max_value, dtype=torch.uint8, device=gray.device),
                        torch.tensor(0, dtype=torch.uint8, device=gray.device))

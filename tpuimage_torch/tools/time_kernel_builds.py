@@ -1,0 +1,213 @@
+"""Time several builds of one kernel source against each other.
+
+    python -m tpuimage_torch.tools.time_kernel_builds {gauss_sep,hist256,blackhat_rect}
+        [--source OTHER.cu ...] [--timed-only OTHER.cu ...]
+        [--ksize 83 255] [--mode none sub adaptive]
+
+Builds ``csrc/<kernel>.cu`` and every other version of that file given
+(the same C interface: an earlier commit's from ``git show``, or a copy
+with one part taken away or one constant changed) into a library of its
+own, all nvcc processes at once, and calls each on the kernel's inputs at
+the paths' shapes:
+
+- gauss_sep: 8 seeded random A4 planes (1200x849), every ``--ksize`` x
+  ``--mode``;
+- hist256: the sub_raw / blackhat planes of 8 A4 pages with a random and a
+  constant row, as chip_smoke.py phase 2 makes them, the 512 CLAHE tile
+  rows of 8 night scenes, 8 eroded morph_seq planes;
+- blackhat_rect: the 8 stretched A4 planes at the ink mask's rectangle.
+
+The tree's build and every ``--source`` are held exact against the plain
+version (one that differs is named, left untimed, and the tool exits 1); a
+``--timed-only`` build (one that no longer computes the function, say
+without its loads) is only timed. Prints the card's name and
+power limit and one line per case: each build's ms for one call, the
+median of 10 samples of 20 back-to-back eager calls, taken in turns (a, b,
+.., b, a), the lower of the two kept. A hist256 call zeroes its output
+first in every build (the first design needs it). Needs a card and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tpuimage_torch import synth
+from tpuimage_torch.ops import color, histogram, kernels, median
+from tpuimage_torch.ops.color import rgb_to_gray
+from tpuimage_torch.pipelines import docscan, night
+
+N = 8
+PAGE, NIGHT, MORPH = (1200, 849), (853, 1280), (963, 1280)
+KERNELS = ("blackhat_rect", "gauss_sep", "hist256")
+_p = ctypes.c_void_p
+
+
+def _ms(fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 20)
+    return statistics.median(times)
+
+
+def _build_all(jobs) -> list:
+    """nvcc every (source, library) at once; load the libraries."""
+    procs = [subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
+                               str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for src, out in jobs]
+    for (src, _), proc in zip(jobs, procs):
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    return [ctypes.CDLL(str(out)) for _, out in jobs]
+
+
+def _raise_on(rc: int, fn: str) -> None:
+    if rc:
+        raise RuntimeError(f"{fn}: cuda error {rc}")
+
+
+def _pages(dev) -> torch.Tensor:
+    return torch.from_numpy(np.stack([
+        synth.page(100 + i, *PAGE, tilt_deg=(3.0 if i % 2 else 0.0), rules=(3 if i % 2 else 0))
+        for i in range(N)])).to(dev)
+
+
+def _gauss_cases(args, dev, stream):
+    shape = (N, *PAGE)
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    out = torch.empty_like(x)
+    for k in args.ksize:
+        for mode in args.mode:
+            taps = kernels._gauss_taps(k, 0.0, "f32" if mode == "adaptive" else "q8", str(dev))
+            want = (kernels.gaussian_blur_u8_ref(x, k) if mode == "none"
+                    else kernels.gauss_chain_ref(x, k, mode, 3.0))
+
+            def bind(lib, k=k, mode=mode, taps=taps):
+                lib.tpuimage_gauss_sep_scratch.restype = ctypes.c_longlong
+                n = lib.tpuimage_gauss_sep_scratch(*shape, k)
+                scratch = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
+                return lambda: _raise_on(lib.tpuimage_gauss_sep(
+                    _p(x.data_ptr()), _p(taps.data_ptr()), _p(out.data_ptr()),
+                    _p(scratch.data_ptr() if n else 0), *shape, k,
+                    kernels._GAUSS_MODE_IDS[mode], 3 if mode == "adaptive" else 0, stream),
+                    "tpuimage_gauss_sep")
+
+            yield f"k={k} {mode}", out, want, bind
+
+
+def _hist_cases(args, dev, stream):
+    cfg = docscan.GUI_DOCUMENT_CONFIG
+    sub_raw, bh_raw = docscan._ink_planes(docscan._illumination(rgb_to_gray(_pages(dev)), cfg),
+                                          cfg)
+    n = PAGE[0] * PAGE[1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    planes = torch.cat([torch.stack([sub_raw, bh_raw], dim=1).reshape(2 * N, n),
+                        torch.randint(0, 256, (1, n), generator=gen, device=dev,
+                                      dtype=torch.uint8),
+                        torch.full((1, n), 255, dtype=torch.uint8, device=dev)])
+    scenes = torch.from_numpy(np.stack([synth.night_scene(400 + i, *NIGHT)
+                                        for i in range(N)])).to(dev)
+    lab = kernels.rgb_to_lab(median.median_blur(scenes, 3, channels_last=True).contiguous(),
+                             color.lab_tables_on(dev))
+    tiles = histogram.clahe_tiles(lab[..., 0].contiguous(), night.TILES, night.TILES)[0]
+    docs = torch.from_numpy(np.stack([synth.document_photo(500 + i, *MORPH)
+                                      for i in range(N)])).to(dev)
+    eroded = kernels.gray_erode3(docs)[1].reshape(N, -1)
+    for label, x in (("18 A4 rows", planes), (f"{tiles.shape[0]} CLAHE tile rows", tiles),
+                     ("8 eroded planes", eroded)):
+        out = torch.empty((x.shape[0], 256), dtype=torch.int32, device=dev)
+
+        def bind(lib, x=x, out=out):
+            lib.tpuimage_hist256.argtypes = [_p, _p, ctypes.c_longlong, ctypes.c_longlong, _p]
+
+            def call():
+                out.zero_()
+                _raise_on(lib.tpuimage_hist256(x.data_ptr(), out.data_ptr(), *x.shape, stream),
+                          "tpuimage_hist256")
+            return call
+
+        yield label, out, kernels.hist256_batch_ref(x), bind
+
+
+def _blackhat_cases(args, dev, stream):
+    cfg = docscan.GUI_DOCUMENT_CONFIG
+    x = docscan._illumination(rgb_to_gray(_pages(dev)), cfg)
+    kh, kw = docscan.blackhat_se(cfg).shape
+    out = torch.empty_like(x)
+
+    def bind(lib):
+        lib.tpuimage_blackhat_rect_scratch.restype = ctypes.c_longlong
+        nb = lib.tpuimage_blackhat_rect_scratch(*x.shape, kw, kh)
+        scratch = torch.empty(max(nb, 1), dtype=torch.uint8, device=dev)
+        return lambda: _raise_on(lib.tpuimage_blackhat_rect(
+            _p(x.data_ptr()), _p(out.data_ptr()), _p(scratch.data_ptr() if nb else 0),
+            *x.shape, kw, kh, stream), "tpuimage_blackhat_rect")
+
+    yield f"8 A4 planes {kw}x{kh}", out, kernels.blackhat_rect_ref(x, kw, kh), bind
+
+
+_CASES = {"blackhat_rect": _blackhat_cases, "gauss_sep": _gauss_cases, "hist256": _hist_cases}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=KERNELS)
+    ap.add_argument("--source", action="append", default=[], type=Path,
+                    help="another version of the source, held exact")
+    ap.add_argument("--timed-only", action="append", default=[], type=Path,
+                    help="another version that need not compute the function")
+    ap.add_argument("--ksize", nargs="+", type=int, default=[43, 51, 83, 127, 255],
+                    help="gauss_sep only")
+    ap.add_argument("--mode", nargs="+", default=["none", "sub"],
+                    choices=sorted(kernels._GAUSS_MODE_IDS), help="gauss_sep only")
+    args = ap.parse_args(argv)
+    dev = torch.device("cuda")
+    base = kernels.CSRC / f"{args.kernel}.cu"
+    builds = ([(base.name, base, True)] + [(str(s), s, True) for s in args.source]
+              + [(str(s), s, False) for s in args.timed_only])
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = _build_all([(src, kernels.BUILD_DIR / f"time_{args.kernel}_{i}.so")
+                       for i, (_, src, _) in enumerate(builds)])
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    stream = _p(torch.cuda.current_stream().cuda_stream)
+    rc = 0
+    for label, out, want, bind in _CASES[args.kernel](args, dev, stream):
+        timed = []
+        for (name, _, exact), lib in zip(builds, libs):
+            call = bind(lib)
+            out.zero_()
+            call()
+            torch.cuda.synchronize()
+            if exact and not torch.equal(out, want):
+                diff = int((out.to(torch.int64) - want.to(torch.int64)).abs().max())
+                print(f"{label}: build {name} differs from the plain version (max |diff| "
+                      f"{diff}), not timed", flush=True)
+                rc = 1
+                continue
+            timed.append((name, call))
+        there = [_ms(c) for _, c in timed]
+        back = [_ms(c) for _, c in reversed(timed)][::-1]
+        print(f"{args.kernel} {label}: " + "; ".join(
+            f"{name} {min(a, b):.4f} ms" for (name, _), a, b in zip(timed, there, back)),
+            flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
