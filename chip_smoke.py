@@ -20,7 +20,10 @@ Phases (any failure raises and the exit code is non-zero):
    call or a short composition of calls for
    the same function, its time: hist256 and hough_votes; rank_extract on
    the same edge maps (each page one band, and tpuimage's 128-band
-   layout), beside the earlier nonzero compaction's time; the post-warp
+   layout; its bound the mask's bytes and the slots'), beside the earlier
+   nonzero compaction's time and compact_edges' whole device time (the
+   profiler's kernel time of one call: the scan, the kernel, the
+   coordinates); the post-warp
    chain's gauss_chain (divide k=43, sub k=51, adaptive block 31),
    gaussian_blur_u8 (k=43 and 51, and the wide 83 and 255), blackhat_rect
    (9x19; library: max_pool2d, 2-D or separable, the faster) and
@@ -35,7 +38,8 @@ Phases (any failure raises and the exit code is non-zero):
    (gauss_chain, gaussian_blur_u8) also on inputs chosen to break them
    (``synth.hough_stress_cases``, ``synth.BLUR_STRESS_SHAPES``; exact, not
    timed), their times beside those of the direct designs they replaced
-   (so too blackhat_rect's and hist256's, redesigned later), and
+   (so too blackhat_rect's and hist256's, redesigned later, and
+   bilateral's and rank_extract's, later still), and
    hough_votes on random coordinates of the same lengths (its floor
    without runs of equal bins);
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
@@ -113,9 +117,18 @@ PRE_DESKEW_KERNELS = ("gauss_chain", "blackhat_rect", "inkmask_weighted")
 # blurs: that design's source built and timed beside the redesign by
 # tpuimage_torch/tools/time_kernel_builds.py, one call on the same card.
 # blackhat_rect (direct windows) and hist256 (warp-aggregated, its zeroing
-# launch included), the first designs, likewise
+# launch included), the first designs, likewise; so too bilateral (a thread a
+# pixel) and rank_extract (a thread a position and band, after the
+# wrapper's zeroing launch), the first designs, from PR 6's four runs
 DIRECT_DESIGN_MS = {"hist256 18 A4 planes": (0.0700, 0.0727),
                     "blackhat_rect": (0.1923, 0.2012),
+                    "bilateral preprocess": (0.5455, 0.5511),
+                    "bilateral phone_12mp": (0.4300, 0.4345),
+                    "bilateral color": (0.5330, 0.5424),
+                    "bilateral face_r15": (1.6240, 1.6384),
+                    "rank_extract deskew": (0.0354, 0.0405),
+                    "rank_extract localize": (0.0540, 0.0557),
+                    "rank_extract tpu_layout": (0.0258, 0.0429),
                     "hough_votes deskew": (0.1400, 0.1451),
                     "hough_votes localize": (0.1710, 0.1801),
                     "gauss_chain divide": (0.2507, 0.2595),
@@ -302,7 +315,8 @@ def _sub_record(rec: dict, what: str, sub: dict) -> None:
     record under ``what``."""
     rec["max_abs_err"] = max(rec["max_abs_err"], sub["max_abs_err"])
     rec.update({f"{what}_{k}": sub[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                                "graph_ms") if sub[k] is not None})
+                                                "graph_ms", "compact_edges_device_ms")
+                if sub.get(k) is not None})
 
 
 def _compact_edges_nonzero(edges: torch.Tensor, k: int):
@@ -347,10 +361,11 @@ def _rank_planes(edges: torch.Tensor, k: int, tpu_layout: bool = False):
     return rank.t(), flat.t(), max(int(torch.clamp(counts, max=k).max()), 1)
 
 
-def _rank_bound(rank: torch.Tensor, mask: torch.Tensor, kk: int) -> dict:
-    """Every mask byte read once, the rank of each edge (4 bytes), the
-    kk x nb int32 slots written once."""
-    return _bound(mask.numel() + 4 * int(mask.sum()) + 4 * kk * mask.shape[1], 0)
+def _rank_bound(mask: torch.Tensor, kk: int) -> dict:
+    """The least bytes the function needs: every mask byte read once and
+    the kk x nb int32 slots written once (rank is the mask's exclusive
+    cumsum, so a design may derive it and read none of it)."""
+    return _bound(mask.numel() + 4 * kk * mask.shape[1], 0)
 
 
 def _bilateral_bound(img: torch.Tensor, ntaps: int) -> dict:
@@ -550,7 +565,8 @@ def main() -> int:
             f"{h}x{w}, plane {tuple(mask.shape)}, kk {kk}, {int(mask.sum())} edges)",
             lambda rank=rank, mask=mask, kk=kk: kernels.rank_extract(rank, mask, kk),
             lambda rank=rank, mask=mask, kk=kk: kernels.rank_extract_ref(rank, mask, kk),
-            _rank_bound(rank, mask, kk), plain_calls=5)
+            _rank_bound(mask, kk), plain_calls=5)
+        _beside_direct_design(f"rank_extract {what}", rank_recs[what])
         if not tpu:
             k = hough.default_max_edges(h, w)
             new_ms = _cuda_ms(lambda e=e, k=k: hough.compact_edges(e, k), reps=5, calls=5)
@@ -558,8 +574,12 @@ def main() -> int:
             if not all(torch.equal(a, b) for a, b in zip(hough.compact_edges(e, k),
                                                          _compact_edges_nonzero(e, k))):
                 raise AssertionError(f"compact_edges ({what}) differs from the nonzero form")
+            dev_ms, n_k, top_k, _ = _profile(lambda e=e, k=k: hough.compact_edges(e, k))
             print(f"compact_edges ({what}): {new_ms:.4f} ms with rank_extract, "
-                  f"{old_ms:.4f} ms in the earlier nonzero form (equal outputs; for the record)")
+                  f"{old_ms:.4f} ms in the earlier nonzero form (equal outputs; for the record); "
+                  f"device time {dev_ms:.4f} ms in {n_k:.0f} kernels a call, the most: "
+                  + "; ".join(f"{name} {t:.4f} ms" for name, t in top_k))
+            rank_recs[what]["compact_edges_device_ms"] = dev_ms
     records["rank_extract"] = rank_recs["deskew"]
     for what in ("localize", "tpu_layout"):
         _sub_record(records["rank_extract"], what, rank_recs[what])
@@ -713,6 +733,7 @@ def main() -> int:
             lambda x=x, a=(taps, space_w, lut, radius): kernels.bilateral(x, *a),
             lambda x=x, a=(taps, space_w, lut, radius): kernels.bilateral_ref(x, *a),
             _bilateral_bound(x, taps.shape[0]), plain_calls=2)
+        _beside_direct_design(f"bilateral {what}", bil[what])
     records["bilateral"] = bil["preprocess"]
     for what in ("phone_12mp", "color"):
         _sub_record(records["bilateral"], what, bil[what])
@@ -724,6 +745,7 @@ def main() -> int:
         lambda: kernels.bilateral(face, taps, space_w, lut, radius),
         lambda: kernels.bilateral_ref(face, taps, space_w, lut, radius),
         _bilateral_bound(face, taps.shape[0]), plain_calls=1)
+    _beside_direct_design("bilateral face_r15", bil["face_r15"])
     _sub_record(records["bilateral"], "face_r15", bil["face_r15"])
     del gray_photos, phone, scenes_c, face
 

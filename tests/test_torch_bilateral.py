@@ -88,8 +88,11 @@ def test_gray_within_contract_of_scan_and_pallas(photo, d, sc, ss):
     _assert_float_contract(ours, np.asarray(pallas))
 
 
-@pytest.mark.parametrize("d,sc,ss", [(9, 75, 75), (9, 100, 75), (11, 100, 100)])
+@pytest.mark.parametrize("d,sc,ss", [(9, 75, 75), (9, 100, 75), (11, 100, 100),
+                                     (-1, 30, 10), (0, 40, 3)])
 def test_color_within_contract_of_scan(photo, d, sc, ss):
+    """Landscape's settings, face's d -1, 30/10 (radius 15, 709 taps) and a
+    d of 0 (the radius from sigma_space: round(4.5) = 4)."""
     ours = tbil.bilateral_filter(torch.from_numpy(photo), d, sc, ss).numpy()
     ref = jax.jit(lambda x: jbil.bilateral_filter(x, d, sc, ss, impl="scan"))(
         jnp.asarray(photo))

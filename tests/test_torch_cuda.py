@@ -429,6 +429,55 @@ def test_bilateral_card_against_host(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,d", [((4, 1600, 1203), 9), ((2, 130, 1031), 9),
+                                     ((3, 61, 45), 3), ((1, 5, 4), 3), ((1, 3, 2), 13)])
+def test_bilateral_gray_at_run_edges(cuda_device, shape, d):
+    """Widths that are no multiple of a thread's run of 8 pixels, in the
+    64 x 32 form (the first shape: enough tiles for it) and the 32 x 16
+    one; radius 1 (d 3), and images narrower than their halo."""
+    _bilateral_on_card(cuda_device, _odd_planes(shape), d, 75, 75)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d", [((2, 853, 1283), 9), ((1, 70, 131), 9), ((1, 6, 9), 15),
+                                     ((2, 9, 7), 3)])
+def test_bilateral_color_at_run_edges(cuda_device, shape, d):
+    """Colour: widths that are no multiple of a run of 4 pixels in the
+    64 x 16 form (the first shape) and the 32 x 16 one, a halo wider than
+    the image, radius 1."""
+    imgs = torch.from_numpy(np.random.default_rng(shape[2]).integers(
+        0, 256, (*shape, 3), dtype=np.uint8))
+    _bilateral_on_card(cuda_device, imgs, d, 40, 75)
+
+
+def _smem_limit(chans, per_tap, lut):
+    """The widest radius whose 32 x 16 halo tile, weight table and per-tap
+    words fit in 227 KB, with the op's circular tap sets."""
+    from tpuimage_torch.ops import bilateral
+    fits = [r for r in range(1, 256)
+            if 4 * lut + per_tap * len(bilateral._tap_offsets(r))
+            + chans * (32 + 2 * r) * (16 + 2 * r) <= 232448]
+    return max(fits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chans", [1, 3])
+def test_bilateral_widest_radius_and_one_past(cuda_device, chans):
+    """The widest radius the kernel takes (gray 115, colour 90; the first
+    design's tile, table and 8 bytes a tap stopped at 87 and 74) is exact
+    against the plain version; one more is refused with an error."""
+    from tpuimage_torch.ops import bilateral
+    widest = _smem_limit(chans, 4, 256 if chans == 1 else 766)
+    assert widest >= _smem_limit(chans, 8, 255 * chans + 1)
+    shape = (1, 23, 37, 3) if chans == 3 else (1, 23, 37)
+    img = torch.from_numpy(np.random.default_rng(chans).integers(0, 256, shape, dtype=np.uint8))
+    _bilateral_on_card(cuda_device, img, 2 * widest + 1, 30, 40)
+    radius, taps, space_w, lut = bilateral.tables_on(2 * widest + 3, 30, 40, chans, cuda_device)
+    with pytest.raises(RuntimeError, match="bilateral launch failed"):
+        kernels.bilateral(img.to(cuda_device), taps, space_w, lut, radius)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("density", [0.05, 0.2])
 @pytest.mark.parametrize("tight", [False, True])
 def test_rank_extract_on_card(cuda_device, density, tight):
@@ -444,6 +493,66 @@ def test_rank_extract_on_card(cuda_device, density, tight):
         out = _count("rank_extract", lambda: kernels.rank_extract(
             rank.to(cuda_device), mask.to(cuda_device), kk))
         assert torch.equal(out.cpu(), kernels.rank_extract_ref(rank, mask, kk))
+
+
+def _rank_plane(mask):
+    pi = mask.to(torch.int32)
+    return torch.cumsum(pi, dim=0, dtype=torch.int32) - pi
+
+
+def _rank_extract_exact(cuda_device, rank, mask, kk):
+    """The kernel against the plain version, its output allocated over a
+    freed block of the same size filled with 0x5a bytes (the kernel must
+    write every slot, the zeros past each band's count too)."""
+    junk = torch.full((max(kk, 1), rank.shape[1]), 0x5A5A5A5A, dtype=torch.int32,
+                      device=cuda_device)
+    del junk
+    out = _count("rank_extract", lambda: kernels.rank_extract(rank, mask, kk))
+    assert torch.equal(out.cpu(), kernels.rank_extract_ref(rank.cpu(), mask.cpu(), kk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 17, 40001, 1018800, 1018801])
+@pytest.mark.parametrize("offset", [0, 1, 7])
+def test_rank_extract_page_major_edges(cuda_device, n, offset):
+    """compact_edges' layout, each page a band of the transposed plane:
+    lengths that are no multiple of 16 (the 16-byte loads' ends), and
+    planes whose rows start at byte offset 1 or 7 from a 16-byte boundary."""
+    rng = np.random.default_rng(n + offset)
+    flat = torch.zeros(3 * n + offset, dtype=torch.bool, device=cuda_device)
+    flat[offset:] = torch.from_numpy(rng.random(3 * n) < 0.15).to(cuda_device)
+    rows = flat[offset:].view(3, n)
+    rank = _rank_plane(rows.t())
+    counts = rows.sum(dim=1)
+    for kk in (1, max(int(counts.max()) // 2, 1), int(counts.max()) + 3):
+        _rank_extract_exact(cuda_device, rank, rows.t(), kk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["empty", "all_set"])
+@pytest.mark.parametrize("layout", ["page_major", "band_fast"])
+def test_rank_extract_empty_and_full(cuda_device, fill, layout):
+    """No edge at all, and every position an edge, in both layouts; kk 1,
+    inside and past the count."""
+    value = fill == "all_set"
+    if layout == "page_major":
+        mask = torch.full((2, 5003), value, dtype=torch.bool, device=cuda_device).t()
+    else:
+        mask = torch.full((1037, 128), value, dtype=torch.bool, device=cuda_device)
+    rank = _rank_plane(mask)
+    for kk in (1, 300, mask.shape[0] + 2):
+        _rank_extract_exact(cuda_device, rank, mask, kk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8192, 128), (1001, 33), (5, 300)])
+def test_rank_extract_band_fast(cuda_device, shape):
+    """tpuimage's position-major layout (bands the fast axis), with a
+    count of positions that is no multiple of the strided form's run."""
+    mask = torch.from_numpy(np.random.default_rng(shape[0]).random(shape) < 0.1).to(cuda_device)
+    rank = _rank_plane(mask)
+    for kk in (1, 7, int(mask.sum(dim=0).max()) + 1):
+        _rank_extract_exact(cuda_device, rank, mask, kk)
 
 
 @pytest.mark.cuda

@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm_count.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -51,7 +53,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 256;
 constexpr int kUnroll = 4;       // 16-byte loads in flight a thread
 constexpr int kMaxCluster = 8;   // blocks a row: the portable cluster size
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void count_word(uint32_t w, unsigned* hist) {
 #pragma unroll
@@ -110,18 +111,6 @@ hist256_kernel(const uint8_t* __restrict__ src, int32_t* __restrict__ out, long 
     out[(long long)blockIdx.y * kBins + bin] = (int32_t)s;
   }
   cluster.sync();
-}
-
-int sm_count() {
-  static int cached[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
-  if (cached[dev] == 0) {
-    int sms = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-    cached[dev] = sms;
-  }
-  return cached[dev];
 }
 
 }  // namespace

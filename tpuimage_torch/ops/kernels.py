@@ -184,7 +184,7 @@ def _load() -> ctypes.CDLL:
             lib.tpuimage_inkmask_scratch.restype = ll
             lib.tpuimage_bilateral.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.tpuimage_bilateral.restype = i
-            lib.tpuimage_rank_extract.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll, i, p]
+            lib.tpuimage_rank_extract.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, p]
             lib.tpuimage_rank_extract.restype = i
             _lib = lib
     return _lib
@@ -859,11 +859,17 @@ def rank_extract_ref(rank: torch.Tensor, mask: torch.Tensor, kk: int) -> torch.T
 def rank_extract(rank: torch.Tensor, mask: torch.Tensor, kk: int) -> torch.Tensor:
     """Sort-free edge compaction (replaces tpuimage's
     ``rank_extract_pallas``): rank (N, nb) int32 is each position's
-    exclusive edge rank within its band, mask (N, nb) bool the edges.
+    exclusive edge rank within its band: the mask's exclusive cumsum along
+    the band, which the kernel relies on (where positions are contiguous
+    it reads rank once per 512 positions and counts the set bytes from
+    there); mask (N, nb) bool the edges.
     Returns ci (kk, nb) int32, the position of band b's k-th edge at
     ``ci[k, b]``; edges of rank >= kk are dropped, and ``ci`` is 0 past a
     band's count. Both inputs may have any strides (a page-major (B, P)
-    plane goes in transposed, as (P, B) with nb = B bands)."""
+    plane goes in transposed, as (P, B) with nb = B bands). On the card,
+    where positions are the mask's fast axis, ci is the (kk, nb) view of
+    band-major storage (``ci.t()`` is contiguous), so that each band's
+    slots are written as runs."""
     if rank.dtype != torch.int32:
         raise TypeError(f"rank: expected torch.int32, got {rank.dtype}")
     if mask.dtype != torch.bool:
@@ -877,14 +883,19 @@ def rank_extract(rank: torch.Tensor, mask: torch.Tensor, kk: int) -> torch.Tenso
     if dev.type == "cpu":
         return rank_extract_ref(rank, mask, kk)
     n, nb = rank.shape
-    ci = torch.zeros((kk, nb), dtype=torch.int32, device=dev)
-    if ci.numel() == 0 or n == 0:
-        return ci
+    if kk == 0 or nb == 0 or n == 0:
+        return torch.zeros((kk, nb), dtype=torch.int32, device=dev)
+    # the kernel writes every slot
+    if mask.stride(0) == 1:
+        ci = torch.empty((nb, kk), dtype=torch.int32, device=dev).t()
+    else:
+        ci = torch.empty((kk, nb), dtype=torch.int32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         rc = lib.tpuimage_rank_extract(rank.data_ptr(), mask.data_ptr(), ci.data_ptr(), n, nb,
                                        rank.stride(0), rank.stride(1), mask.stride(0),
-                                       mask.stride(1), kk, _stream(dev))
+                                       mask.stride(1), ci.stride(0), ci.stride(1), kk,
+                                       _stream(dev))
     _raise_on(rc, "rank_extract")
     _count("rank_extract")
     return ci

@@ -1,6 +1,7 @@
 """Time several builds of one kernel source against each other.
 
-    python -m tpuimage_torch.tools.time_kernel_builds {gauss_sep,hist256,blackhat_rect}
+    python -m tpuimage_torch.tools.time_kernel_builds
+        {bilateral,blackhat_rect,gauss_sep,hist256,rank_extract}
         [--source OTHER.cu ...] [--timed-only OTHER.cu ...]
         [--ksize 83 255] [--mode none sub adaptive]
 
@@ -15,16 +16,25 @@ the paths' shapes:
 - hist256: the sub_raw / blackhat planes of 8 A4 pages with a random and a
   constant row, as chip_smoke.py phase 2 makes them, the 512 CLAHE tile
   rows of 8 night scenes, 8 eroded morph_seq planes;
-- blackhat_rect: the 8 stretched A4 planes at the ink mask's rectangle.
+- blackhat_rect: the 8 stretched A4 planes at the ink mask's rectangle;
+- bilateral: the gray planes of chip_smoke.py's 8 photos of 1600x1200 at
+  DocScanner's d 9, 75/75, and 2 colour photos of 1280x853 at face's d -1,
+  30/10 (radius 15);
+- rank_extract: the Canny edge maps of the 8 A4 pages after the
+  pre-deskew stages (deskew) and of the 8 photos (localize), each page one
+  band of the page-major plane through ``hough.exclusive_rank``, as
+  ``hough.compact_edges`` hands them over.
 
 The tree's build and every ``--source`` are held exact against the plain
 version (one that differs is named, left untimed, and the tool exits 1); a
 ``--timed-only`` build (one that no longer computes the function, say
 without its loads) is only timed. Prints the card's name and
 power limit and one line per case: each build's ms for one call, the
-median of 10 samples of 20 back-to-back eager calls, taken in turns (a, b,
-.., b, a), the lower of the two kept. A hist256 call zeroes its output
-first in every build (the first design needs it). Needs a card and nvcc.
+median of 10 samples of 20 back-to-back eager calls, and in parentheses
+its device time, the median of 5 replays of a CUDA graph of 20 calls;
+both taken in turns (a, b, .., b, a), the lower of the two kept. A hist256
+or rank_extract call zeroes its output first in every build (the first
+designs need it). Needs a card and nvcc.
 """
 from __future__ import annotations
 
@@ -39,13 +49,13 @@ import numpy as np
 import torch
 
 from tpuimage_torch import synth
-from tpuimage_torch.ops import color, histogram, kernels, median
+from tpuimage_torch.ops import bilateral, color, edges, histogram, hough, kernels, median
 from tpuimage_torch.ops.color import rgb_to_gray
 from tpuimage_torch.pipelines import docscan, night
 
 N = 8
-PAGE, NIGHT, MORPH = (1200, 849), (853, 1280), (963, 1280)
-KERNELS = ("blackhat_rect", "gauss_sep", "hist256")
+PAGE, NIGHT, MORPH, PHOTO = (1200, 849), (853, 1280), (963, 1280), (1600, 1200)
+KERNELS = ("bilateral", "blackhat_rect", "gauss_sep", "hist256", "rank_extract")
 _p = ctypes.c_void_p
 
 
@@ -64,11 +74,31 @@ def _ms(fn) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(fn) -> float:
+    """The device time of one call: the median of 5 replays of a CUDA
+    graph of 20 calls, captured on the current stream (no launch cost)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.current_stream()):
+        for _ in range(20):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 20)
+    return statistics.median(times)
+
+
 def _build_all(jobs) -> list:
     """nvcc every (source, library) at once; load the libraries."""
-    procs = [subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-                               str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for src, out in jobs]
+    procs = [subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+                               "-shared", "-o", str(out), str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for src, out in jobs]
     for (src, _), proc in zip(jobs, procs):
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
@@ -161,7 +191,67 @@ def _blackhat_cases(args, dev, stream):
     yield f"8 A4 planes {kw}x{kh}", out, kernels.blackhat_rect_ref(x, kw, kh), bind
 
 
-_CASES = {"blackhat_rect": _blackhat_cases, "gauss_sep": _gauss_cases, "hist256": _hist_cases}
+def _photos(dev) -> torch.Tensor:
+    """chip_smoke.py's main-path photos: 7 pages (the second with tilted
+    text and ruled lines) and one photo with no page."""
+    return torch.from_numpy(np.stack([
+        synth.document_photo(300 + i, *PHOTO, tilt_deg=3.0 if i == 1 else 0.0,
+                             rules=3 if i == 1 else 0, with_page=i != N - 1)
+        for i in range(N)])).to(dev)
+
+
+def _bilateral_cases(args, dev, stream):
+    face = torch.from_numpy(np.stack([synth.document_photo(260 + i, *NIGHT)
+                                      for i in range(2)])).to(dev)
+    for label, x, (d, sc, ss) in ((f"{N} gray photos d=9", rgb_to_gray(_photos(dev)), (9, 75, 75)),
+                                  ("2 colour photos d=-1 30/10", face, (-1, 30, 10))):
+        chans = 3 if x.dim() == 4 else 1
+        radius, taps, space_w, lut = bilateral.tables_on(d, sc, ss, chans, dev)
+        out = torch.empty_like(x)
+
+        def bind(lib, x=x, out=out, chans=chans, a=(radius, taps, space_w, lut)):
+            radius, taps, space_w, lut = a
+            return lambda: _raise_on(lib.tpuimage_bilateral(
+                _p(x.data_ptr()), _p(taps.data_ptr()), _p(space_w.data_ptr()),
+                _p(lut.data_ptr()), _p(out.data_ptr()), *x.shape[:3], chans, radius,
+                taps.shape[0], lut.shape[0], stream), "tpuimage_bilateral")
+
+        yield (f"{label} ({taps.shape[0]} taps)", out,
+               kernels.bilateral_ref(x, taps, space_w, lut, radius), bind)
+
+
+def _rank_cases(args, dev, stream):
+    cfg = docscan.GUI_DOCUMENT_CONFIG
+    deskew = edges.canny(docscan._pre_deskew_stages(_pages(dev), cfg)["weighted"],
+                         cfg.canny_low, cfg.canny_high)
+    localize = edges.canny(rgb_to_gray(_photos(dev)), cfg.canny_low, cfg.canny_high)
+    for label, e in ((f"{N} deskew maps", deskew), (f"{N} localize maps", localize)):
+        b, h, w = e.shape
+        flat = e.reshape(b, h * w) > 0
+        rank, counts = hough.exclusive_rank(flat)
+        kk = max(int(torch.clamp(counts, max=hough.default_max_edges(h, w)).max()), 1)
+        rank_t, mask_t = rank.t(), flat.t()
+        out = torch.empty((b, kk), dtype=torch.int32, device=dev).t()   # as the wrapper lays it out
+
+        def bind(lib, rank_t=rank_t, mask_t=mask_t, out=out, kk=kk):
+            ll = ctypes.c_longlong
+            lib.tpuimage_rank_extract.argtypes = [_p, _p, _p, ll, ll, ll, ll, ll, ll, ll, ll,
+                                                  ctypes.c_int, _p]
+
+            def call():
+                out.zero_()
+                _raise_on(lib.tpuimage_rank_extract(
+                    rank_t.data_ptr(), mask_t.data_ptr(), out.data_ptr(), *mask_t.shape,
+                    *rank_t.stride(), *mask_t.stride(), *out.stride(), kk, stream),
+                    "tpuimage_rank_extract")
+            return call
+
+        yield (f"{label} {h}x{w}, kk {kk}", out, kernels.rank_extract_ref(rank_t, mask_t, kk),
+               bind)
+
+
+_CASES = {"bilateral": _bilateral_cases, "blackhat_rect": _blackhat_cases,
+          "gauss_sep": _gauss_cases, "hist256": _hist_cases, "rank_extract": _rank_cases}
 
 
 def main(argv=None) -> int:
@@ -185,7 +275,13 @@ def main(argv=None) -> int:
                        for i, (_, src, _) in enumerate(builds)])
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    stream = _p(torch.cuda.current_stream().cuda_stream)
+    # every call on one side stream, which a CUDA graph can capture
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        return _run(args, builds, libs, dev, _p(side.cuda_stream))
+
+
+def _run(args, builds, libs, dev, stream) -> int:
     rc = 0
     for label, out, want, bind in _CASES[args.kernel](args, dev, stream):
         timed = []
@@ -201,11 +297,11 @@ def main(argv=None) -> int:
                 rc = 1
                 continue
             timed.append((name, call))
-        there = [_ms(c) for _, c in timed]
-        back = [_ms(c) for _, c in reversed(timed)][::-1]
+        there = [(_ms(c), _graph_ms(c)) for _, c in timed]
+        back = [(_ms(c), _graph_ms(c)) for _, c in reversed(timed)][::-1]
         print(f"{args.kernel} {label}: " + "; ".join(
-            f"{name} {min(a, b):.4f} ms" for (name, _), a, b in zip(timed, there, back)),
-            flush=True)
+            f"{name} {min(a[0], b[0]):.4f} ms ({min(a[1], b[1]):.4f})"
+            for (name, _), a, b in zip(timed, there, back)), flush=True)
     return rc
 
 
