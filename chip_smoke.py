@@ -31,15 +31,20 @@ Phases (any failure raises and the exit code is non-zero):
    A4 pages of 1200x849, the divide
    epilogue on all 65,536 pairs, and the split forms of the four kernels
    (windows too wide for their tiles: ksize 257, a 129x255 rectangle, 9
-   dilations), exact but not timed; bilateral on 8 gray photos of
-   1600x1200 (the preprocess, d 9, 75/75), one 12 MP gray photo, 8 colour
-   images of 1280x853 (d 9, 100/75) and face's d -1, 30/10 (radius 15) on
-   2 colour images; hough_votes and the separable Gaussian
+   dilations), exact but not timed; inkmask_weighted and binary_close3 on
+   planes 1-3 bytes off a word boundary, widths 1-9 and 849, one row and
+   one column, thresholds from -1 to 300 and NaN (``MASK_EDGE_*``), exact;
+   bilateral on 8 gray photos of 1600x1200 (the preprocess, d 9, 75/75),
+   one 12 MP gray photo, 8 colour images of 1280x853 (d 9, 100/75) and
+   face's d -1, 30/10 (radius 15) on 2 colour images; hough_votes and the separable Gaussian
    (gauss_chain, gaussian_blur_u8) also on inputs chosen to break them
    (``synth.hough_stress_cases``, ``synth.BLUR_STRESS_SHAPES``; exact, not
    timed), their times beside those of the direct designs they replaced
    (so too blackhat_rect's and hist256's, redesigned later, and
-   bilateral's and rank_extract's, later still), and
+   bilateral's and rank_extract's, later still, and inkmask_weighted's
+   and binary_close3's, the latest, each of these two also from a CUDA
+   graph whose calls go round copies of the inputs that exceed the L2
+   cache, ``rotated_graph_ms``), and
    hough_votes on random coordinates of the same lengths (its floor
    without runs of equal bins);
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
@@ -119,8 +124,12 @@ PRE_DESKEW_KERNELS = ("gauss_chain", "blackhat_rect", "inkmask_weighted")
 # blackhat_rect (direct windows) and hist256 (warp-aggregated, its zeroing
 # launch included), the first designs, likewise; so too bilateral (a thread a
 # pixel) and rank_extract (a thread a position and band, after the
-# wrapper's zeroing launch), the first designs, from PR 6's four runs
-DIRECT_DESIGN_MS = {"hist256 18 A4 planes": (0.0700, 0.0727),
+# wrapper's zeroing launch), the first designs, from four runs (PERF.md); so
+# too inkmask_weighted (iters 1) and binary_close3 (one block a 64x32
+# tile through shared memory, a byte a thread), redesigned later still
+DIRECT_DESIGN_MS = {"inkmask_weighted": (0.0664, 0.0687),
+                    "binary_close3": (0.0603, 0.0612),
+                    "hist256 18 A4 planes": (0.0700, 0.0727),
                     "blackhat_rect": (0.1923, 0.2012),
                     "bilateral preprocess": (0.5455, 0.5511),
                     "bilateral phone_12mp": (0.4300, 0.4345),
@@ -138,7 +147,21 @@ DIRECT_DESIGN_MS = {"hist256 18 A4 planes": (0.0700, 0.0727),
                     "gaussian_blur_u8 k=51": (0.2888, 0.2950),
                     "gaussian_blur_u8 k=83": (0.4851, 0.4851),
                     "gaussian_blur_u8 k=255": (3.9771, 3.9771)}
+# the same two first designs' device times (a CUDA graph of 20 calls, as
+# _compare's "graph_ms"), the same four runs: a redesigned kernel's eager time
+# through its wrapper may read the host's launch cost instead
+DIRECT_DESIGN_GRAPH_MS = {"inkmask_weighted": (0.0639, 0.0649),
+                          "binary_close3": (0.0583, 0.0587)}
 WIDE_BLUR_KSIZES = (83, 255)   # the ends of the sliding-window form's Q8.8 range
+L2_BYTES = 50 << 20            # the H100's L2 cache
+# the byte-mask kernels (inkmask_weighted, binary_close3) read rows as
+# aligned words: widths 1-9, one row, one column and DocScanner's 849, each
+# plane starting 1-3 bytes past a word boundary, thresholds around and
+# outside the byte range, iters in both of inkmask_weighted's forms
+MASK_EDGE_SHAPES = tuple((2, 37, w) for w in range(1, 10)) + ((2, 70, 849), (1, 1, 849),
+                                                              (1, 1200, 1))
+MASK_EDGE_THRESHOLDS = (-1.0, -0.5, 0.0, 117.5, 254.0, 255.0, 300.0, float("nan"))
+MASK_EDGE_ITERS = (0, 1, 8, 9)
 
 
 def _nvidia_smi() -> str:
@@ -196,6 +219,34 @@ def _graph_ms(fn, reps: int = 5, calls: int = 20) -> float:
         times.append(start.elapsed_time(end) / calls)
     del graph
     return statistics.median(times)
+
+
+def _rotated_graph_ms(make_fn, inputs, reps: int = 5, calls: int = 20) -> float:
+    """``_graph_ms`` with the graph's calls going round copies of the
+    inputs (a tuple of tensors) that total more than the L2 cache, so that
+    each call reads its inputs from device memory: ``make_fn(copy)`` gives
+    the call on one copy."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    copies = [inputs] + [tuple(t.clone() for t in inputs)
+                         for _ in range(L2_BYTES // nbytes + 1)]
+    fns = [make_fn(c) for c in copies]
+    turn = iter(range(10 ** 9))
+    ms = _graph_ms(lambda: fns[next(turn) % len(fns)](), reps, calls)
+    del fns, copies
+    return ms
+
+
+def _at_offset(shape, offset: int, seed: int, dev) -> torch.Tensor:
+    """A (B, H, W) uint8 plane on the card whose data starts ``offset``
+    bytes past a word boundary: random bytes with runs of 0 and 255."""
+    n = int(np.prod(shape))
+    flat = np.random.default_rng(seed).integers(0, 256, n + offset, dtype=np.uint8)
+    flat[offset::7] = 0
+    flat[offset + 3::11] = 255
+    x = torch.from_numpy(flat).to(dev)[offset:].view(shape)
+    if x.data_ptr() % 4 != offset % 4:
+        raise AssertionError("the plane does not start where it was asked to")
+    return x
 
 
 def _profile(fn, reps: int = 3):
@@ -308,6 +359,11 @@ def _beside_direct_design(what: str, rec: dict) -> None:
     print(f"{what}: {rec['ms']:.4f} ms; the direct design took {lo:.4f}-{hi:.4f} ms "
           f"(NVIDIA H100 80GB HBM3, 700.00 W): {lo / rec['ms']:.2f}-{hi / rec['ms']:.2f}x; "
           f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound")
+    if what in DIRECT_DESIGN_GRAPH_MS:
+        lo, hi = DIRECT_DESIGN_GRAPH_MS[what]
+        print(f"{what}: device time {rec['graph_ms']:.4f} ms; the direct design's "
+              f"{lo:.4f}-{hi:.4f} ms: {lo / rec['graph_ms']:.2f}-{hi / rec['graph_ms']:.2f}x; "
+              f"{100 * rec['bound_ms'] / rec['graph_ms']:.1f}% of the bound")
 
 
 def _sub_record(rec: dict, what: str, sub: dict) -> None:
@@ -673,6 +729,13 @@ def main() -> int:
         lambda: kernels.inkmask_weighted(sub_raw, bh_raw, adapt, t_sub, t_bh, it),
         lambda: kernels.inkmask_weighted_ref(sub_raw, bh_raw, adapt, t_sub, t_bh, it),
         _bound(5 * n_px + 8 * N_REQUESTS, (4 + 2 * it) * n_px), [inkmask_library])
+    _beside_direct_design("inkmask_weighted", records["inkmask_weighted"])
+    rec = records["inkmask_weighted"]
+    rec["rotated_graph_ms"] = _rotated_graph_ms(
+        lambda c: lambda: kernels.inkmask_weighted(*c, t_sub, t_bh, it), (sub_raw, bh_raw, adapt))
+    print(f"inkmask_weighted: {rec['rotated_graph_ms']:.4f} ms from a CUDA graph whose calls go "
+          f"round copies of the inputs > 50 MB ({rec['graph_ms']:.4f} ms on one copy); "
+          f"{100 * rec['bound_ms'] / rec['rotated_graph_ms']:.1f}% of the bound")
     if not torch.equal(kernels.divide_table(dev).cpu(), kernels.divide_table("cpu")):
         raise AssertionError("the divide epilogue differs from divide_u8 on the card")
     print("divide epilogue: all 65,536 (num, den) pairs equal divide_u8")
@@ -692,6 +755,25 @@ def main() -> int:
     for what, kernel_fn, plain_fn in wide:
         _exact(what, kernel_fn, plain_fn)
         print(f"{what} (split form, 2 or 8 A4 planes): exact")
+    # the byte-mask kernels at the edges: rows at every alignment
+    n_cases = 0
+    for shape in MASK_EDGE_SHAPES:
+        planes = [_at_offset(shape, off, 100 * off + shape[2], dev) for off in (1, 2, 3)]
+        for i in range(len(MASK_EDGE_THRESHOLDS)):
+            t1, t2 = (torch.tensor([MASK_EDGE_THRESHOLDS[(k * i + j + k - 1) % 8]
+                                    for j in range(shape[0])], device=dev) for k in (1, 3))
+            _exact(f"binary_close3 {shape} at byte offset 1, thresholds {t1.tolist()}",
+                   lambda: kernels.binary_close3(planes[0], t1),
+                   lambda: kernels.binary_close3_ref(planes[0], t1))
+            for iters in MASK_EDGE_ITERS:
+                _exact(f"inkmask_weighted {shape} iters={iters} at byte offsets 1-3, "
+                       f"thresholds {t1.tolist()} / {t2.tolist()}",
+                       lambda: kernels.inkmask_weighted(*planes, t1, t2, iters),
+                       lambda: kernels.inkmask_weighted_ref(*planes, t1, t2, iters))
+            n_cases += 1 + len(MASK_EDGE_ITERS)
+    print(f"binary_close3 / inkmask_weighted (iters {MASK_EDGE_ITERS}) on shapes "
+          f"{MASK_EDGE_SHAPES}, planes 1-3 bytes off a word boundary, thresholds "
+          f"{MASK_EDGE_THRESHOLDS}: {n_cases} cases exact")
     # the separable Gaussian on shapes and sizes chosen to break it, every mode
     n_cases = 0
     for shape in synth.BLUR_STRESS_SHAPES:
@@ -1003,6 +1085,13 @@ def main() -> int:
         [lambda sep=sep: _pool_close((eroded > thresh[:, None, None]).to(torch.float16) * 255,
                                      3, 3, sep) for sep in (False, True)],
         library_output=1)
+    _beside_direct_design("binary_close3", records["binary_close3"])
+    rec = records["binary_close3"]
+    rec["rotated_graph_ms"] = _rotated_graph_ms(
+        lambda c: lambda: kernels.binary_close3(*c), (eroded, thresh))
+    print(f"binary_close3: {rec['rotated_graph_ms']:.4f} ms from a CUDA graph whose calls go "
+          f"round copies of the inputs > 50 MB ({rec['graph_ms']:.4f} ms on one copy); "
+          f"{100 * rec['bound_ms'] / rec['rotated_graph_ms']:.1f}% of the bound")
     del gray_f
     rec = records["hist256"]
     rec["max_abs_err"] = max(rec["max_abs_err"], clahe_hist["max_abs_err"],

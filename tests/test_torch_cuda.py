@@ -179,6 +179,73 @@ def test_morph3_kernels_on_card(cuda_device, shape):
     assert torch.equal(binary.cpu(), ref_binary) and torch.equal(closed.cpu(), ref_closed)
 
 
+# the byte-mask kernels (binary_close3, inkmask_weighted) walk rows as
+# aligned words: widths 1-9 and the paths' 849, 963 and 1280, planes of one
+# row and of one column, every plane at a byte offset off a word boundary,
+# and thresholds below, inside and above the byte range, NaN included
+_EDGE_SHAPES = ([(2, 37, w) for w in range(1, 10)]
+                + [(1, 1, 849), (1, 1200, 1), (3, 1, 1), (2, 70, 849), (1, 9, 849),
+                   (2, 41, 963), (1, 35, 1280), (2, 5, 300)])
+_EDGE_THRESHOLDS = (-1.0, -0.5, 0.0, 117.5, 254.0, 255.0, 300.0, float("nan"))
+
+
+def _at_offset(shape, offset, seed, device):
+    """A (B, H, W) uint8 plane whose data starts ``offset`` bytes past a
+    word boundary (a contiguous view of a larger buffer): random bytes with
+    runs of 0 and 255."""
+    n = int(np.prod(shape))
+    flat = np.random.default_rng(seed).integers(0, 256, n + offset, dtype=np.uint8)
+    flat[offset::7] = 0
+    flat[offset + 3::11] = 255
+    x = torch.from_numpy(flat).to(device)[offset:].view(shape)
+    assert x.data_ptr() % 4 == offset % 4
+    return x
+
+
+def _thresholds(i, b, device):
+    return torch.tensor([_EDGE_THRESHOLDS[(i + j) % len(_EDGE_THRESHOLDS)] for j in range(b)],
+                        dtype=torch.float32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _EDGE_SHAPES)
+def test_binary_close3_kernel_at_edge_shapes(cuda_device, shape):
+    """The plane 1 byte past a word boundary (its rows realigned), and a
+    copy of it at the allocation's own alignment, as the outputs are (rows
+    in their own words; none realigned where the width is a multiple of 4)."""
+    odd = _at_offset(shape, 1, shape[1] * shape[2], cuda_device)
+    for x in (odd, odd.clone()):
+        for i in range(len(_EDGE_THRESHOLDS)):
+            thresh = _thresholds(i, shape[0], cuda_device)
+            binary, closed = _count("binary_close3", lambda: kernels.binary_close3(x, thresh))
+            ref_binary, ref_closed = kernels.binary_close3_ref(x.cpu(), thresh.cpu())
+            assert torch.equal(binary.cpu(), ref_binary), (x.data_ptr() % 4, thresh)
+            assert torch.equal(closed.cpu(), ref_closed), (x.data_ptr() % 4, thresh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", list(range(10)) + [20])
+@pytest.mark.parametrize("shape", _EDGE_SHAPES)
+def test_inkmask_weighted_kernel_at_edge_shapes(cuda_device, shape, iters):
+    """The three planes at byte offsets 1, 2 and 3 (every row realigned),
+    and copies of them at the allocation's own alignment, as the outputs
+    are (rows worked on in their own words); iters 0-8 in the warp form, 9
+    and 20 in the split form."""
+    odd = [_at_offset(shape, off, off * 1000 + shape[2] + iters, cuda_device)
+           for off in (1, 2, 3)]
+    for planes in (odd, [a.clone() for a in odd]):
+        for i in range(len(_EDGE_THRESHOLDS)):
+            t_sub = _thresholds(i, shape[0], cuda_device)
+            t_bh = _thresholds(3 * i + 1, shape[0], cuda_device)
+            mask, weighted = _count("inkmask_weighted", lambda: kernels.inkmask_weighted(
+                *planes, t_sub, t_bh, iters))
+            ref_mask, ref_weighted = kernels.inkmask_weighted_ref(
+                *(a.cpu() for a in planes), t_sub.cpu(), t_bh.cpu(), iters)
+            assert torch.equal(mask.cpu(), ref_mask), (planes[0].data_ptr() % 4, t_sub, t_bh)
+            assert torch.equal(weighted.cpu(), ref_weighted), (planes[0].data_ptr() % 4, t_sub,
+                                                               t_bh)
+
+
 # ---------------------------------------------------------------------------
 # the post-warp chain's kernels: at the path's shapes (8 A4 pages of
 # 1200x849) and at odd ones, where the halo is wider than the image

@@ -272,14 +272,15 @@ def test_blend_pairs_use_the_matrix_weights():
     assert torch.equal(rebuilt, m)
 
 
-@pytest.mark.parametrize("shape", [(97, 131), (33, 257)])
+@pytest.mark.parametrize("shape", [(97, 131), (33, 257), (5, 963)])
 def test_morph3_refs_match_pallas(rng, shape):
     rgb = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
     gray, eroded = kernels.gray_erode3_ref(torch.from_numpy(rgb[None]))
     rg, re = gray_erode3_pallas(jnp.asarray(rgb), interpret=True)
     np.testing.assert_array_equal(gray[0].numpy(), np.asarray(rg))
     np.testing.assert_array_equal(eroded[0].numpy(), np.asarray(re))
-    for t in (0.0, 117.0, 254.0):
+    # integer-valued thresholds: tpuimage's kernel truncates its threshold to int32
+    for t in (-1.0, 0.0, 117.0, 254.0, 255.0):
         binary, closed = kernels.binary_close3_ref(eroded, torch.tensor([t]))
         rb, rc = binary_close3_pallas(jnp.asarray(eroded[0].numpy()), t, interpret=True)
         np.testing.assert_array_equal(binary[0].numpy(), np.asarray(rb))
@@ -338,8 +339,8 @@ def test_blackhat_rect_ref_matches_pallas(rng, shape, kw, kh):
             ours, np.asarray(blackhat_rect_pallas(jnp.asarray(x), kw, kh, interpret=True)))
 
 
-@pytest.mark.parametrize("shape", [(40, 60), (17, 23)])
-@pytest.mark.parametrize("iters", [0, 1, 3])
+@pytest.mark.parametrize("shape", [(40, 60), (17, 23), (9, 849)])
+@pytest.mark.parametrize("iters", [0, 1, 3, 8])
 def test_inkmask_weighted_ref_matches_pallas(rng, shape, iters):
     sparse = np.where(rng.random(shape) < 0.9, 0,
                       rng.integers(1, 256, shape)).astype(np.uint8)

@@ -1,9 +1,9 @@
 """Time several builds of one kernel source against each other.
 
     python -m tpuimage_torch.tools.time_kernel_builds
-        {bilateral,blackhat_rect,gauss_sep,hist256,rank_extract}
+        {bilateral,blackhat_rect,gauss_sep,hist256,inkmask,morph3,rank_extract}
         [--source OTHER.cu ...] [--timed-only OTHER.cu ...]
-        [--ksize 83 255] [--mode none sub adaptive]
+        [--ksize 83 255] [--mode none sub adaptive] [--iters 1 8]
 
 Builds ``csrc/<kernel>.cu`` and every other version of that file given
 (the same C interface: an earlier commit's from ``git show``, or a copy
@@ -23,7 +23,12 @@ the paths' shapes:
 - rank_extract: the Canny edge maps of the 8 A4 pages after the
   pre-deskew stages (deskew) and of the 8 photos (localize), each page one
   band of the page-major plane through ``hough.exclusive_rank``, as
-  ``hough.compact_edges`` hands them over.
+  ``hough.compact_edges`` hands them over;
+- inkmask: the sub_raw / blackhat / adaptive planes of the 8 A4 pages and
+  their Otsu thresholds, as chip_smoke.py phase 2 makes them, at every
+  ``--iters`` (default the GUI preset's 1);
+- morph3: binary_close3 on the 8 eroded morph_seq planes (963 high, 1280
+  wide) and their Otsu thresholds, gray_erode3 on the 8 RGB photos.
 
 The tree's build and every ``--source`` are held exact against the plain
 version (one that differs is named, left untimed, and the tool exits 1); a
@@ -32,7 +37,10 @@ without its loads) is only timed. Prints the card's name and
 power limit and one line per case: each build's ms for one call, the
 median of 10 samples of 20 back-to-back eager calls, and in parentheses
 its device time, the median of 5 replays of a CUDA graph of 20 calls;
-both taken in turns (a, b, .., b, a), the lower of the two kept. A hist256
+both taken in turns (a, b, .., b, a), the lower of the two kept. For
+inkmask and morph3 a third time follows in brackets: the same graph with
+its calls rotated over copies of the inputs and outputs that total more
+than the H100's 50 MB L2, so that each call reads device memory. A hist256
 or rank_extract call zeroes its output first in every build (the first
 designs need it). Needs a card and nvcc.
 """
@@ -55,7 +63,9 @@ from tpuimage_torch.pipelines import docscan, night
 
 N = 8
 PAGE, NIGHT, MORPH, PHOTO = (1200, 849), (853, 1280), (963, 1280), (1600, 1200)
-KERNELS = ("bilateral", "blackhat_rect", "gauss_sep", "hist256", "rank_extract")
+KERNELS = ("bilateral", "blackhat_rect", "gauss_sep", "hist256", "inkmask", "morph3",
+           "rank_extract")
+L2_BYTES = 50 << 20
 _p = ctypes.c_void_p
 
 
@@ -74,13 +84,16 @@ def _ms(fn) -> float:
     return statistics.median(times)
 
 
-def _graph_ms(fn) -> float:
+def _graph_ms(fn, *more) -> float:
     """The device time of one call: the median of 5 replays of a CUDA
-    graph of 20 calls, captured on the current stream (no launch cost)."""
+    graph of 20 calls, captured on the current stream (no launch cost);
+    with ``more`` calls (the same on copies of the data), the 20 go round
+    all of them."""
+    fns = (fn, *more)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=torch.cuda.current_stream()):
-        for _ in range(20):
-            fn()
+        for i in range(20):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -250,8 +263,82 @@ def _rank_cases(args, dev, stream):
                bind)
 
 
+class Rotated:
+    """A case's binder that also binds copies of its data, enough that the
+    calls' data exceeds the L2 cache: ``bind(lib)`` for the checked call,
+    ``bind.copies(lib)`` for the calls on the copies (made at first use).
+    ``make(lib, i)`` binds the call on copy i (0: the checked data)."""
+
+    def __init__(self, make, nbytes: int):
+        self.make, self.n = make, L2_BYTES // nbytes + 1
+
+    def __call__(self, lib):
+        return self.make(lib, 0)
+
+    def copies(self, lib):
+        return [self.make(lib, i) for i in range(1, self.n + 1)]
+
+
+def _ink_cases(args, dev, stream):
+    cfg = docscan.GUI_DOCUMENT_CONFIG
+    stretched = docscan._illumination(rgb_to_gray(_pages(dev)), cfg)
+    sub_raw, bh_raw = docscan._ink_planes(stretched, cfg)
+    hists = kernels.hist256_batch(torch.stack([sub_raw, bh_raw], dim=1).reshape(2 * N, -1))
+    hists = hists.reshape(N, 2, 256)
+    t_sub = docscan._raw_otsu_threshold(hists[:, 0], cfg.mask_thresh_offset)
+    t_bh = docscan._raw_otsu_threshold(hists[:, 1], cfg.mask_thresh_offset)
+    adapt = kernels.gauss_chain(stretched, docscan.adaptive_block(cfg), "adaptive", cfg.C)
+    planes = torch.stack([sub_raw, bh_raw, adapt])
+    for it in args.iters:
+        out = torch.empty((2, *sub_raw.shape), dtype=torch.uint8, device=dev)
+        want = torch.stack(kernels.inkmask_weighted_ref(sub_raw, bh_raw, adapt, t_sub, t_bh, it))
+        data = {}
+
+        def make(lib, i, it=it, out=out):
+            if i not in data:
+                data[i] = (planes, out) if i == 0 else (planes.clone(), torch.empty_like(out))
+            (s, b, a), (m, wt) = data[i]
+            lib.tpuimage_inkmask_scratch.restype = ctypes.c_longlong
+            nb = lib.tpuimage_inkmask_scratch(*s.shape, it)
+            scratch = torch.empty(max(nb, 1), dtype=torch.uint8, device=dev)
+            return lambda: _raise_on(lib.tpuimage_inkmask_weighted(
+                _p(s.data_ptr()), _p(b.data_ptr()), _p(a.data_ptr()), _p(t_sub.data_ptr()),
+                _p(t_bh.data_ptr()), _p(m.data_ptr()), _p(wt.data_ptr()),
+                _p(scratch.data_ptr() if nb else 0), *s.shape, it, stream),
+                "tpuimage_inkmask_weighted")
+
+        yield (f"8 A4 planes iters {it}", out, want,
+               Rotated(make, planes.numel() + out.numel()))
+
+
+def _morph3_cases(args, dev, stream):
+    docs = torch.from_numpy(np.stack([synth.document_photo(500 + i, *MORPH)
+                                      for i in range(N)])).to(dev)
+    eroded = kernels.gray_erode3(docs)[1]
+    thresh = histogram.otsu_from_hist(kernels.hist256_batch(eroded.reshape(N, -1)))
+    for label, x, want, fn in (
+            (f"binary_close3 8 eroded planes {MORPH[0]} high {MORPH[1]} wide", eroded,
+             kernels.binary_close3_ref(eroded, thresh), "tpuimage_binary_close3"),
+            (f"gray_erode3 8 RGB photos {MORPH[0]} high {MORPH[1]} wide", docs,
+             kernels.gray_erode3_ref(docs), "tpuimage_gray_erode3")):
+        out = torch.empty((2, *eroded.shape), dtype=torch.uint8, device=dev)
+        data = {}
+
+        def make(lib, i, x=x, out=out, fn=fn):
+            if i not in data:
+                data[i] = (x, out) if i == 0 else (x.clone(), torch.empty_like(out))
+            xi, o = data[i]
+            extra = (_p(thresh.data_ptr()),) if fn == "tpuimage_binary_close3" else ()
+            return lambda: _raise_on(getattr(lib, fn)(
+                _p(xi.data_ptr()), *extra, _p(o[0].data_ptr()), _p(o[1].data_ptr()),
+                *eroded.shape, stream), fn)
+
+        yield label, out, torch.stack(want), Rotated(make, x.numel() + out.numel())
+
+
 _CASES = {"bilateral": _bilateral_cases, "blackhat_rect": _blackhat_cases,
-          "gauss_sep": _gauss_cases, "hist256": _hist_cases, "rank_extract": _rank_cases}
+          "gauss_sep": _gauss_cases, "hist256": _hist_cases, "inkmask": _ink_cases,
+          "morph3": _morph3_cases, "rank_extract": _rank_cases}
 
 
 def main(argv=None) -> int:
@@ -265,6 +352,8 @@ def main(argv=None) -> int:
                     help="gauss_sep only")
     ap.add_argument("--mode", nargs="+", default=["none", "sub"],
                     choices=sorted(kernels._GAUSS_MODE_IDS), help="gauss_sep only")
+    ap.add_argument("--iters", nargs="+", type=int,
+                    default=[docscan.GUI_DOCUMENT_CONFIG.ink_dilate_iters], help="inkmask only")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     base = kernels.CSRC / f"{args.kernel}.cu"
@@ -279,6 +368,11 @@ def main(argv=None) -> int:
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
         return _run(args, builds, libs, dev, _p(side.cuda_stream))
+
+
+def _times(call, more):
+    """(eager ms, device ms, device ms rotated over copies or None)."""
+    return _ms(call), _graph_ms(call), _graph_ms(call, *more) if more is not None else None
 
 
 def _run(args, builds, libs, dev, stream) -> int:
@@ -296,12 +390,13 @@ def _run(args, builds, libs, dev, stream) -> int:
                       f"{diff}), not timed", flush=True)
                 rc = 1
                 continue
-            timed.append((name, call))
-        there = [(_ms(c), _graph_ms(c)) for _, c in timed]
-        back = [(_ms(c), _graph_ms(c)) for _, c in reversed(timed)][::-1]
+            timed.append((name, call, bind.copies(lib) if isinstance(bind, Rotated) else None))
+        there = [_times(c, more) for _, c, more in timed]
+        back = [_times(c, more) for _, c, more in reversed(timed)][::-1]
         print(f"{args.kernel} {label}: " + "; ".join(
             f"{name} {min(a[0], b[0]):.4f} ms ({min(a[1], b[1]):.4f})"
-            for (name, _), a, b in zip(timed, there, back)), flush=True)
+            + (f" [{min(a[2], b[2]):.4f}]" if more is not None else "")
+            for (name, _, more), a, b in zip(timed, there, back)), flush=True)
     return rc
 
 
