@@ -42,9 +42,10 @@ Phases (any failure raises and the exit code is non-zero):
    timed), their times beside those of the direct designs they replaced
    (so too blackhat_rect's and hist256's, redesigned later, and
    bilateral's and rank_extract's, later still, and inkmask_weighted's
-   and binary_close3's, the latest, each of these two also from a CUDA
+   and binary_close3's, later still, each of these two also from a CUDA
    graph whose calls go round copies of the inputs that exceed the L2
-   cache, ``rotated_graph_ms``), and
+   cache, ``rotated_graph_ms``; clahe_apply's and gray_erode3's, the
+   latest, likewise in phase 7), and
    hough_votes on random coordinates of the same lengths (its floor
    without runs of equal bins);
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
@@ -72,6 +73,8 @@ Phases (any failure raises and the exit code is non-zero):
    tile rows and on morph_seq's eroded planes, gray_erode3 and
    binary_close3 on 8 RGB document photos of 963x1280 (its sample.jpg;
    library: their erosion / closing as max_pool2d, 2-D or separable);
+   clahe_apply, gray_erode3 and binary_close3 beside their first designs'
+   times and with ``rotated_graph_ms``;
 8. the paths: ``night_rgb_batch``, ``night_gray_batch`` and
    ``morphseq_batch`` on those inputs, each with the counters reset just
    before and read just after, their MP/s, and a profiled window (device
@@ -126,8 +129,13 @@ PRE_DESKEW_KERNELS = ("gauss_chain", "blackhat_rect", "inkmask_weighted")
 # pixel) and rank_extract (a thread a position and band, after the
 # wrapper's zeroing launch), the first designs, from four runs (PERF.md); so
 # too inkmask_weighted (iters 1) and binary_close3 (one block a 64x32
-# tile through shared memory, a byte a thread), redesigned later still
-DIRECT_DESIGN_MS = {"inkmask_weighted": (0.0664, 0.0687),
+# tile through shared memory, a byte a thread), redesigned later still, and
+# clahe_apply (a thread a column down 64 rows, the image's LUT table in
+# shared memory) and gray_erode3 (a block a 64x32 tile through shared
+# memory), the latest
+DIRECT_DESIGN_MS = {"clahe_apply": (0.0348, 0.0392),
+                    "gray_erode3": (0.0488, 0.0506),
+                    "inkmask_weighted": (0.0664, 0.0687),
                     "binary_close3": (0.0603, 0.0612),
                     "hist256 18 A4 planes": (0.0700, 0.0727),
                     "blackhat_rect": (0.1923, 0.2012),
@@ -151,7 +159,9 @@ DIRECT_DESIGN_MS = {"inkmask_weighted": (0.0664, 0.0687),
 # _compare's "graph_ms"), the same four runs: a redesigned kernel's eager time
 # through its wrapper may read the host's launch cost instead
 DIRECT_DESIGN_GRAPH_MS = {"inkmask_weighted": (0.0639, 0.0649),
-                          "binary_close3": (0.0583, 0.0587)}
+                          "binary_close3": (0.0583, 0.0587),
+                          "clahe_apply": (0.0247, 0.0252),
+                          "gray_erode3": (0.0464, 0.0470)}
 WIDE_BLUR_KSIZES = (83, 255)   # the ends of the sliding-window form's Q8.8 range
 L2_BYTES = 50 << 20            # the H100's L2 cache
 # the byte-mask kernels (inkmask_weighted, binary_close3) read rows as
@@ -234,6 +244,15 @@ def _rotated_graph_ms(make_fn, inputs, reps: int = 5, calls: int = 20) -> float:
     ms = _graph_ms(lambda: fns[next(turn) % len(fns)](), reps, calls)
     del fns, copies
     return ms
+
+
+def _rotated(name: str, rec: dict, make_fn, inputs) -> None:
+    """Add ``rotated_graph_ms`` (``_rotated_graph_ms``) to a kernel's
+    record and print it beside the graph time on one copy."""
+    rec["rotated_graph_ms"] = _rotated_graph_ms(make_fn, inputs)
+    print(f"{name}: {rec['rotated_graph_ms']:.4f} ms from a CUDA graph whose calls go round "
+          f"copies of the inputs > 50 MB ({rec['graph_ms']:.4f} ms on one copy); "
+          f"{100 * rec['bound_ms'] / rec['rotated_graph_ms']:.1f}% of the bound")
 
 
 def _at_offset(shape, offset: int, seed: int, dev) -> torch.Tensor:
@@ -730,12 +749,9 @@ def main() -> int:
         lambda: kernels.inkmask_weighted_ref(sub_raw, bh_raw, adapt, t_sub, t_bh, it),
         _bound(5 * n_px + 8 * N_REQUESTS, (4 + 2 * it) * n_px), [inkmask_library])
     _beside_direct_design("inkmask_weighted", records["inkmask_weighted"])
-    rec = records["inkmask_weighted"]
-    rec["rotated_graph_ms"] = _rotated_graph_ms(
-        lambda c: lambda: kernels.inkmask_weighted(*c, t_sub, t_bh, it), (sub_raw, bh_raw, adapt))
-    print(f"inkmask_weighted: {rec['rotated_graph_ms']:.4f} ms from a CUDA graph whose calls go "
-          f"round copies of the inputs > 50 MB ({rec['graph_ms']:.4f} ms on one copy); "
-          f"{100 * rec['bound_ms'] / rec['rotated_graph_ms']:.1f}% of the bound")
+    _rotated("inkmask_weighted", records["inkmask_weighted"],
+             lambda c: lambda: kernels.inkmask_weighted(*c, t_sub, t_bh, it),
+             (sub_raw, bh_raw, adapt))
     if not torch.equal(kernels.divide_table(dev).cpu(), kernels.divide_table("cpu")):
         raise AssertionError("the divide epilogue differs from divide_u8 on the card")
     print("divide epilogue: all 65,536 (num, den) pairs equal divide_u8")
@@ -1052,6 +1068,9 @@ def main() -> int:
         lambda: kernels.clahe_apply(lum, luts, R, C),
         lambda: kernels.clahe_apply_ref(lum, luts, R, C),
         _bound(2 * n_night + luts.numel() + 4 * (R.numel() + C.numel()), 9 * n_night))
+    _beside_direct_design("clahe_apply", records["clahe_apply"])
+    _rotated("clahe_apply", records["clahe_apply"],
+             lambda c: lambda: kernels.clahe_apply(*c, R, C), (lum, luts))
     del filtered, lum, tiles, luts
 
     docs = np.stack([synth.document_photo(500 + i, *MORPH) for i in range(N_REQUESTS)])
@@ -1067,6 +1086,9 @@ def main() -> int:
         _bound(5 * n_morph, 15 * n_morph),
         [lambda sep=sep: -_pool_max(-gray_f, 3, 3, sep) for sep in (False, True)],
         library_output=1)
+    _beside_direct_design("gray_erode3", records["gray_erode3"])
+    _rotated("gray_erode3", records["gray_erode3"], lambda c: lambda: kernels.gray_erode3(*c),
+             (docs_d,))
     eroded = kernels.gray_erode3(docs_d)[1]
     rows = eroded.reshape(N_REQUESTS, -1)
     morph_hist = _compare(
@@ -1086,12 +1108,8 @@ def main() -> int:
                                      3, 3, sep) for sep in (False, True)],
         library_output=1)
     _beside_direct_design("binary_close3", records["binary_close3"])
-    rec = records["binary_close3"]
-    rec["rotated_graph_ms"] = _rotated_graph_ms(
-        lambda c: lambda: kernels.binary_close3(*c), (eroded, thresh))
-    print(f"binary_close3: {rec['rotated_graph_ms']:.4f} ms from a CUDA graph whose calls go "
-          f"round copies of the inputs > 50 MB ({rec['graph_ms']:.4f} ms on one copy); "
-          f"{100 * rec['bound_ms'] / rec['rotated_graph_ms']:.1f}% of the bound")
+    _rotated("binary_close3", records["binary_close3"],
+             lambda c: lambda: kernels.binary_close3(*c), (eroded, thresh))
     del gray_f
     rec = records["hist256"]
     rec["max_abs_err"] = max(rec["max_abs_err"], clahe_hist["max_abs_err"],

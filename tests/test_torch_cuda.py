@@ -179,6 +179,75 @@ def test_morph3_kernels_on_card(cuda_device, shape):
     assert torch.equal(binary.cpu(), ref_binary) and torch.equal(closed.cpu(), ref_closed)
 
 
+# clahe_apply and gray_erode3 at their edge shapes: tile grids from 1x1 to
+# 16x16, widths 1-9 and the paths' widths, planes 1-3 bytes past a word
+# boundary (rows then read as narrower words or bytes), random LUTs that
+# are not monotone (a wrong tile or level pick shows), and the erosion's
+# 255 border on all-0 and all-255 images
+_CLAHE_GRIDS = [(1, 1), (1, 8), (3, 5), (8, 8), (16, 16)]
+_CLAHE_SHAPES = ([(2, 1 + w % 3, w) for w in range(1, 10)]
+                 + [(1, 853, 131), (2, 3, 849), (1, 37, 849), (2, 853, 1280)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _CLAHE_SHAPES)
+@pytest.mark.parametrize("grid", _CLAHE_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_clahe_apply_kernel_at_edge_shapes(cuda_device, grid, shape):
+    b, h, w = shape
+    ty, tx = grid
+    _, _, th, tw = histogram.clahe_geometry(h, w, tx, ty)
+    rng = np.random.default_rng(h * 1000 + w + ty)
+    luts = torch.from_numpy(rng.integers(0, 256, (b, ty, tx, 256), dtype=np.uint8))
+    R, C = histogram.blend_matrices_on(h, w, th, tw, ty, tx, torch.device("cpu"))
+    for off in (0, 1, 2, 3):
+        gray = _at_offset(shape, off, off + w, cuda_device)
+        out = _count("clahe_apply", lambda: kernels.clahe_apply(
+            gray, luts.to(cuda_device), R.to(cuda_device), C.to(cuda_device)))
+        ref = kernels.clahe_apply_ref(gray.cpu(), luts, R, C)
+        assert torch.equal(out.cpu(), ref), (off, int((out.cpu() != ref).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.7, 0.3])
+@pytest.mark.parametrize("shape,grid", [((2, 853, 1280), (8, 8)), ((1, 37, 131), (3, 5))])
+def test_clahe_apply_kernel_with_weights_off_the_unit_range(cuda_device, shape, grid, scale):
+    """Blend matrices scaled past 1 or below 0 (R by ``scale``, C by
+    ``scale - 0.5``): blends outside [0, 255], where the kernel clamps as
+    the plain version does (it skips the clamp only for weights that keep
+    every blend inside)."""
+    b, h, w = shape
+    ty, tx = grid
+    _, _, th, tw = histogram.clahe_geometry(h, w, tx, ty)
+    rng = np.random.default_rng(w + ty)
+    luts = torch.from_numpy(rng.integers(0, 256, (b, ty, tx, 256), dtype=np.uint8))
+    R, C = histogram.blend_matrices_on(h, w, th, tw, ty, tx, torch.device("cpu"))
+    R, C = R * scale, C * (scale - 0.5)
+    gray = _at_offset(shape, 0, w, cuda_device)
+    out = _count("clahe_apply", lambda: kernels.clahe_apply(
+        gray, luts.to(cuda_device), R.to(cuda_device), C.to(cuda_device)))
+    ref = kernels.clahe_apply_ref(gray.cpu(), luts, R, C)
+    assert torch.equal(out.cpu(), ref), int((out.cpu() != ref).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("w", list(range(1, 10)) + [849, 963, 1280])
+def test_gray_erode3_kernel_at_edge_shapes(cuda_device, w, batch):
+    """Heights 1-3 (every row on the border) and 17; the RGB buffer 0-3
+    bytes past a word boundary; random, all-0 and all-255 images."""
+    for h in (1, 2, 3, 17):
+        for off in (0, 1, 2, 3):
+            rgb = _at_offset((batch, h, w * 3), off, 7 * off + h + w, cuda_device)
+            rgb = rgb.view(batch, h, w, 3)
+            for fill in (None, 0, 255):
+                if fill is not None:
+                    rgb.fill_(fill)
+                gray, eroded = _count("gray_erode3", lambda: kernels.gray_erode3(rgb))
+                ref_gray, ref_eroded = kernels.gray_erode3_ref(rgb.cpu())
+                assert torch.equal(gray.cpu(), ref_gray), (h, off, fill)
+                assert torch.equal(eroded.cpu(), ref_eroded), (h, off, fill)
+
+
 # the byte-mask kernels (binary_close3, inkmask_weighted) walk rows as
 # aligned words: widths 1-9 and the paths' 849, 963 and 1280, planes of one
 # row and of one column, every plane at a byte offset off a word boundary,

@@ -257,6 +257,28 @@ def test_clahe_apply_ref_matches_pallas(rng, shape):
     assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, ((diff > 0).sum(), diff.size)
 
 
+@pytest.mark.parametrize("shape,tiles", [((97, 131), (3, 5)), ((64, 96), (6, 4)),
+                                         ((40, 50), (1, 1))], ids=["3x5", "6x4", "1x1"])
+def test_clahe_apply_ref_matches_pallas_on_other_grids(rng, shape, tiles):
+    """Tile grids other than 8x8 (ty != tx, and one tile) with
+    random, non-monotone LUTs, so that a wrong tile pick shows: within the
+    same contract as at 8x8 (max |diff| <= 1 on < 0.1% of pixels)."""
+    h, w = shape
+    ty, tx = tiles
+    _, _, th, tw = histogram.clahe_geometry(h, w, tx, ty)
+    gray = rng.integers(0, 256, shape, dtype=np.uint8)
+    luts = rng.integers(0, 256, (ty, tx, 256), dtype=np.uint8)
+    R = jhist.clahe_blend_matrix(h, th, ty)
+    C = np.ascontiguousarray(jhist.clahe_blend_matrix(w, tw, tx).T)
+    ours = kernels.clahe_apply_ref(torch.from_numpy(gray[None]), torch.from_numpy(luts[None]),
+                                   torch.from_numpy(R), torch.from_numpy(C))[0].numpy()
+    ref = np.asarray(clahe_apply_pallas(jnp.asarray(gray), jnp.asarray(luts, jnp.float32),
+                                        jnp.asarray(R), jnp.asarray(C), th=th, tw=tw,
+                                        interpret=True))
+    diff = np.abs(ours.astype(np.int32) - ref)
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, ((diff > 0).sum(), diff.size)
+
+
 def test_blend_pairs_use_the_matrix_weights():
     """At the borders both taps are one tile: the pair carries that
     column's summed weight and a second weight of 0."""
@@ -285,6 +307,17 @@ def test_morph3_refs_match_pallas(rng, shape):
         rb, rc = binary_close3_pallas(jnp.asarray(eroded[0].numpy()), t, interpret=True)
         np.testing.assert_array_equal(binary[0].numpy(), np.asarray(rb))
         np.testing.assert_array_equal(closed[0].numpy(), np.asarray(rc))
+
+
+@pytest.mark.parametrize("shape", [(1 + w % 3, w) for w in range(1, 10)] + [(1, 963)])
+def test_gray_erode3_ref_matches_pallas_at_edge_widths(rng, shape):
+    """Widths 1-9 (a run narrower than a word of pixels) and one-row
+    images, where the erosion's 255 border is on every side: exact."""
+    rgb = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+    gray, eroded = kernels.gray_erode3_ref(torch.from_numpy(rgb[None]))
+    rg, re = gray_erode3_pallas(jnp.asarray(rgb), interpret=True)
+    np.testing.assert_array_equal(gray[0].numpy(), np.asarray(rg))
+    np.testing.assert_array_equal(eroded[0].numpy(), np.asarray(re))
 
 
 # ---------------------------------------------------------------------------

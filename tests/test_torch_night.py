@@ -192,6 +192,17 @@ def test_clahe_within_contract(shape, kind):
         _assert_within(ours, ref, 1, 1e-3)
 
 
+@pytest.mark.parametrize("shape", [(128, 160), (213, 301)])   # divisible, and not
+def test_clahe_within_contract_on_a_5x3_grid(shape):
+    """tiles_x=5, tiles_y=3 (ty != tx), against the same three forms of
+    tpuimage's clahe: max |diff| <= 1 on < 0.1% of pixels."""
+    x = _inputs("scene", shape)[..., 0].copy()
+    ours = histogram.clahe(_t(x), 2.0, tiles_x=5, tiles_y=3).numpy()
+    for impl in ("gather", "mxu", "pallas"):
+        ref = np.asarray(jhist.clahe(jnp.asarray(x), 2.0, 5, 3, impl=impl))
+        _assert_within(ours, ref, 1, 1e-3)
+
+
 def test_clahe_apply_ref_matches_pallas_with_the_same_luts():
     """The apply step alone, fed tpuimage's own LUTs and blend matrices:
     max |diff| <= 1 on < 0.1% of pixels against clahe_apply_pallas."""

@@ -6,19 +6,18 @@
 //                  the binary plane (x > t ? 255 : 0) and its 3x3 closing,
 //                  both (B, H, W) u8 (steps 3-4).
 //
-// Replaces: tpuimage/ops/pallas_kernels.py gray_erode3_pallas and
-// binary_close3_pallas (bodies _make_gray_erode3_kernel and
+// Replaces: tpuimage/ops/pallas_kernels.py:1781 gray_erode3_pallas and
+// :1809 binary_close3_pallas (bodies _make_gray_erode3_kernel and
 // _make_binary_close3_kernel).
 //
 // Bound on the H100: memory. gray_erode3 reads 3 bytes and writes 2 per
 // pixel; binary_close3 reads 1 and writes 2. The stencils are a few integer
-// min/max per pixel.
+// min/max per pixel, but a pixel's share of loads, shifts, shuffles and
+// stores decides how near the bytes' time a design comes.
 //
-// Design, gray_erode3: one block per (kTileW x kTileH) output tile of one
-// image, with the tile and its halo in shared memory, so each input byte
-// comes from device memory about once (the halo adds ~10%). binary_close3:
-// a warp walks down a strip of rows, eight pixels a lane in registers (at
-// binary_close3_kernel). The TPU kernels' byte packing of RGB into int32,
+// Design: both are a warp walking down a strip of rows with several
+// pixels a lane in registers (at gray_erode3_kernel and
+// binary_close3_kernel): no shared tile. The TPU kernels' byte packing of RGB into int32,
 // lane rolls and VMEM residency gates have no use here. Borders are
 // ops.morphology's constant ones: outside the image the erosion sees 255
 // and the dilation 0. Gray is OpenCV's Q15 (r*9798 + g*19235 + b*3735 +
@@ -35,46 +34,228 @@
 
 namespace {
 
-constexpr int kTileW = 64;
-constexpr int kTileH = 32;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint8_t rgb_gray(const uint8_t* p) {
-  return (uint8_t)(((int)p[0] * 9798 + (int)p[1] * 19235 + (int)p[2] * 3735 +
-                    16384) >> 15);
+// gray_erode3, warp form. Taking parts of a shared-tile design away on the
+// card put most of its time in a divide and a modulo an element, byte
+// loads at stride 3 and nine shared byte loads a pixel, not in the bytes
+// (PERF.md). Here a warp owns a run of 32 x kErodeWords words of one
+// image's column grid (byte_rows.cuh; lane l holds 4 kErodeWords pixels)
+// and walks down a strip of kErodeStrip output rows with one row of halo
+// above and below:
+// - each RGB row is read as the lane's 3 kErodeWords words (16-byte loads
+//   when every row starts on a 16-byte word, else aligned words
+//   funnel-shifted to the column grid, the last from the next lane);
+// - gray is OpenCV's Q15 sum, two 16x8-bit dot products (dp2a) a pixel on
+//   the words as they are, no byte unpacking; two pixels sit in a word as
+//   16-bit halves, so every min is one __vminu2 (VIMNMX.U16x2) for two
+//   pixels (the byte form, __vminu4, is six instructions);
+// - the last two gray rows stay in registers for the vertical minimum and
+//   the neighbours' columns come by shuffle; 255 outside the image;
+// - gray and eroded rows are written as the lanes' 16-byte words where the
+//   planes allow, else as the aligned words of each row's own alignment
+//   (store_row); lanes 0 and 31 are halo and store nothing.
+// No shared memory, no divide per element; a persistent grid of warps
+// strides over (image, strip, run).
+constexpr int kErodeWords = 4;     // words (4 pixels each) a lane holds in a row
+constexpr int kErodeStrip = 16;    // output rows a warp walks
+constexpr int kErodeGroup = 2;     // rows whose loads a lane issues together
+constexpr int kErodeThreads = 128;
+constexpr int kErodeBlocksPerSm = 16;
+constexpr int kErodeFirst = 1, kErodeLast = 30;   // the lanes that store
+constexpr int kErodeOwned = kErodeWords * (kErodeLast - kErodeFirst + 1);
+
+// Gray (Q15, rounded) of the 4 pixels in 3 RGB words, as two words of
+// 16-bit halves: p01 = g0 | g1 << 16, p23 = g2 | g3 << 16. Pixels 1 and 3
+// use doubled weights, so their gray lies in bits 16-23.
+__device__ __forceinline__ void gray4(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t& p01,
+                                      uint32_t& p23) {
+  constexpr uint32_t RG = 9798u | 19235u << 16, B0 = 3735u;
+  constexpr uint32_t R2 = (2u * 9798u) << 16, GB2 = 2u * 19235u | (2u * 3735u) << 16;
+  const uint32_t a0 = __dp2a_hi(B0, w0, __dp2a_lo(RG, w0, 16384u));   // r g b: w0 bytes 0 1 2
+  const uint32_t a1 = __dp2a_lo(GB2, w1, __dp2a_hi(R2, w0, 32768u));  // w0.3; w1 bytes 0 1
+  const uint32_t a2 = __dp2a_lo(B0, w2, __dp2a_hi(RG, w1, 16384u));   // w1 bytes 2 3; w2.0
+  const uint32_t a3 = __dp2a_hi(GB2, w2, __dp2a_lo(R2, w2, 32768u));  // w2 bytes 1 2 3
+  p01 = (a0 >> 15) | (a1 & 0x00ff0000u);
+  p23 = (a2 >> 15) | (a3 & 0x00ff0000u);
 }
 
-__global__ void __launch_bounds__(kThreads)
-gray_erode3_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ gray,
-                   uint8_t* __restrict__ eroded, int h, int w) {
-  constexpr int SW = kTileW + 2, SH = kTileH + 2;
-  __shared__ uint8_t g[SH][SW];
-  const int b = blockIdx.z;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const long long plane = (long long)b * h * w;
-  for (int i = threadIdx.x; i < SH * SW; i += kThreads) {
-    const int ly = i / SW, lx = i % SW;
-    const int y = y0 - 1 + ly, x = x0 - 1 + lx;
-    uint8_t v = 255;
-    if (y >= 0 && y < h && x >= 0 && x < w) {
-      const long long off = plane + (long long)y * w + x;
-      v = rgb_gray(rgb + 3 * off);
-      if (ly >= 1 && ly <= kTileH && lx >= 1 && lx <= kTileW) gray[off] = v;
-    }
-    g[ly][lx] = v;
+// The lane's 12 N bytes of an RGB row [row, row + 3 w) from column
+// cx0 + 4 N lane, as 3 N words. VEC: the row and 3 cx0 are multiples of
+// 4 N bytes and the lane's columns lie in the row (the caller checks).
+// Else aligned words, funnel-shifted, the last from the next lane (lane
+// 31's last word is not the row's); EDGE: a word with no byte of the row
+// reads as 0. All lanes call unless VEC.
+// Writes a lane's N words at p, a multiple of 4 N bytes.
+template <int N>
+__device__ __forceinline__ void store_lane(uint8_t* p, const uint32_t (&q)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(q[0], q[1], q[2], q[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(q[0], q[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) reinterpret_cast<uint32_t*>(p)[k] = q[k];
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTileH * kTileW; i += kThreads) {
-    const int ly = i / kTileW, lx = i % kTileW;
-    const int y = y0 + ly, x = x0 + lx;
-    if (y >= h || x >= w) continue;
-    uint8_t m = 255;
+}
+
+template <int N, bool EDGE, bool VEC>
+__device__ __forceinline__ void load_rgb(uint32_t (&p)[3 * N], const uint8_t* row, int w,
+                                         int cx0, int lane) {
+  const uintptr_t start = reinterpret_cast<uintptr_t>(row);
+  const uintptr_t first = start + (uintptr_t)(intptr_t)(3 * cx0) + 12u * N * (unsigned)lane;
+  if constexpr (VEC) {
+    if constexpr (N == 4) {
+      const uint4* src = reinterpret_cast<const uint4*>(first);
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
+      for (int k = 0; k < 3; ++k) {
+        const uint4 v = __ldg(src + k);
+        p[4 * k] = v.x, p[4 * k + 1] = v.y, p[4 * k + 2] = v.z, p[4 * k + 3] = v.w;
+      }
+    } else if constexpr (N == 2) {
+      const uint2* src = reinterpret_cast<const uint2*>(first);
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) m = min(m, g[ly + dy][lx + dx]);
+      for (int k = 0; k < 3; ++k) {
+        const uint2 v = __ldg(src + k);
+        p[2 * k] = v.x, p[2 * k + 1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3 * N; ++k) p[k] = __ldg(reinterpret_cast<const uint32_t*>(first) + k);
     }
-    eroded[plane + (long long)y * w + x] = m;
+  } else {
+  const uintptr_t a = first & ~(uintptr_t)3;
+  const unsigned off = (unsigned)(first & 3u);
+  uint32_t q[3 * N];
+#pragma unroll
+  for (int j = 0; j < 3 * N; ++j) {
+    const uintptr_t aj = a + 4u * j;
+    q[j] = EDGE && !(aj < start + 3u * (unsigned)w && aj + 4 > start)
+               ? 0u : __ldg(reinterpret_cast<const uint32_t*>(aj));
+  }
+  const uint32_t next = __shfl_down_sync(kAllLanes, q[0], 1);
+#pragma unroll
+  for (int j = 0; j < 3 * N; ++j) p[j] = __funnelshift_r(q[j], j + 1 < 3 * N ? q[j + 1] : next, 8 * off);
+  }
+}
+
+// One warp's strip: output rows [y0, y_end) of one image (the pointers at
+// its row 0) for the run whose lane 0 holds column cx0. VEC: every plane's
+// rows start on 4 kErodeWords-byte words, so a lane's columns lie all in
+// or all out of the row and it loads and stores its own words; else EDGE
+// unless the run lies inside the rows (run_inside).
+template <bool EDGE, bool VEC>
+__device__ __forceinline__ void erode_strip(const uint8_t* rgb, uint8_t* gray, uint8_t* eroded,
+                                            int h, int w, int cx0, int y0, int y_end, int lane) {
+  constexpr int N = kErodeWords, G = kErodeGroup;
+  const int x = cx0 + 4 * N * lane;
+  const bool lane_in = !VEC || (x >= 0 && x < w);   // VEC: all 4 N columns, or none
+  const bool stores = lane >= kErodeFirst && lane <= kErodeLast;
+  uint32_t outside[2 * N];   // 0xff in the 16-bit halves of columns outside [0, w)
+#pragma unroll
+  for (int k = 0; k < 2 * N; ++k) {
+    const int c = x + 2 * k;
+    outside[k] = VEC ? (lane_in ? 0u : 0x00ff00ffu)
+                     : (EDGE ? (c >= 0 && c < w ? 0u : 0xffu)
+                                   | (c + 1 >= 0 && c + 1 < w ? 0u : 0x00ff0000u)
+                             : 0u);
+  }
+  // input row r gives gray row r and eroded row r - 1
+  uint32_t g1[2 * N], g2[2 * N];   // gray rows r - 2, r - 1 as 16-bit halves
+#pragma unroll
+  for (int k = 0; k < 2 * N; ++k) g1[k] = g2[k] = 0x00ff00ffu;
+  const int r_lo = max(y0 - 1, 0), r_hi = min(y_end, h - 1);   // the rows read
+  uint32_t cur[G][3 * N], nxt[G][3 * N];
+  auto load_group = [&](int r0, uint32_t (&words)[G][3 * N]) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int r = r0 + i;
+#pragma unroll
+      for (int j = 0; j < 3 * N; ++j) words[i][j] = 0u;
+      if (r >= r_lo && r <= r_hi && lane_in) {
+        load_rgb<N, EDGE, VEC>(words[i], rgb + 3LL * r * w, w, cx0, lane);
+      }
+    }
+  };
+  load_group(y0 - 1, cur);
+  for (int r0 = y0 - 1; r0 <= y_end; r0 += G) {
+    load_group(r0 + G, nxt);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int r = r0 + i;
+      const long long o = (long long)r * w;
+      uint32_t g[2 * N];
+      if (r >= 0 && r < h) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          gray4(cur[i][3 * k], cur[i][3 * k + 1], cur[i][3 * k + 2], g[2 * k], g[2 * k + 1]);
+        }
+#pragma unroll
+        for (int k = 0; k < 2 * N; ++k) g[k] |= outside[k];
+      } else {
+#pragma unroll
+        for (int k = 0; k < 2 * N; ++k) g[k] = 0x00ff00ffu;   // the erosion's border: 255
+      }
+      const bool live_g = r >= y0 && r < y_end;
+      const bool live_e = r - 1 >= y0 && r - 1 < y_end;
+      uint32_t gb[N], v[2 * N], e[2 * N], eb[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) gb[k] = __byte_perm(g[2 * k], g[2 * k + 1], 0x6420);
+#pragma unroll
+      for (int k = 0; k < 2 * N; ++k) {
+        v[k] = __vminu2(__vminu2(g1[k], g2[k]), g[k]);
+        g1[k] = g2[k];
+        g2[k] = g[k];
+      }
+      const uint32_t left = __shfl_up_sync(kAllLanes, v[2 * N - 1], 1);
+      const uint32_t right = __shfl_down_sync(kAllLanes, v[0], 1);
+#pragma unroll
+      for (int k = 0; k < 2 * N; ++k) {
+        const uint32_t l = __byte_perm(k ? v[k - 1] : left, v[k], 0x5432);
+        const uint32_t rr = __byte_perm(v[k], k + 1 < 2 * N ? v[k + 1] : right, 0x5432);
+        e[k] = __vminu2(__vminu2(l, v[k]), rr);
+      }
+#pragma unroll
+      for (int k = 0; k < N; ++k) eb[k] = __byte_perm(e[2 * k], e[2 * k + 1], 0x6420);
+      if constexpr (VEC) {
+        if (stores && lane_in) {
+          if (live_g) store_lane<N>(gray + o + x, gb);
+          if (live_e) store_lane<N>(eroded + (o - w) + x, eb);
+        }
+      } else {
+        store_row<N, EDGE>(gray + o, live_g, w, cx0, kErodeFirst, kErodeLast, lane, gb);
+        store_row<N, EDGE>(eroded + (o - w), live_e, w, cx0, kErodeFirst, kErodeLast, lane, eb);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3 * N; ++j) cur[i][j] = nxt[i][j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kErodeThreads)
+gray_erode3_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restrict__ gray,
+                   uint8_t* __restrict__ eroded, int batch, int h, int w, bool vec) {
+  constexpr int kWarps = kErodeThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const unsigned runs = runs_for(w, kErodeOwned), strips = (h + kErodeStrip - 1) / kErodeStrip;
+  const unsigned units = (unsigned)batch * strips * runs;
+  for (unsigned u = blockIdx.x * kWarps + (threadIdx.x >> 5); u < units;
+       u += gridDim.x * kWarps) {
+    const unsigned run = u % runs, strip = (u / runs) % strips, b = u / (runs * strips);
+    const int cx0 = 4 * (kErodeOwned * (int)run - kErodeWords * kErodeFirst);
+    const long long plane = (long long)b * h * w;
+    const int y0 = (int)strip * kErodeStrip, y_end = min(y0 + kErodeStrip, h);
+    const uint8_t* src = rgb + 3 * plane;
+    if (vec) {
+      erode_strip<false, true>(src, gray + plane, eroded + plane, h, w, cx0, y0, y_end, lane);
+    } else if (run_inside<kErodeWords>(cx0, w)) {
+      erode_strip<false, false>(src, gray + plane, eroded + plane, h, w, cx0, y0, y_end, lane);
+    } else {
+      erode_strip<true, false>(src, gray + plane, eroded + plane, h, w, cx0, y0, y_end, lane);
+    }
   }
 }
 
@@ -233,24 +414,24 @@ binary_close3_kernel(const uint8_t* __restrict__ src,
   }
 }
 
-dim3 tile_grid(int batch, int h, int w) {
-  return dim3((unsigned)((w + kTileW - 1) / kTileW),
-              (unsigned)((h + kTileH - 1) / kTileH), (unsigned)batch);
-}
-
 }  // namespace
 
 // Both return cudaGetLastError() after the launch (0 on success).
 extern "C" int tpuimage_gray_erode3(const void* rgb, void* gray, void* eroded,
                                     int batch, int h, int w, void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0) return 0;
-  if (batch > 65535 || (h + kTileH - 1) / kTileH > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  gray_erode3_kernel<<<tile_grid(batch, h, w), kThreads, 0,
+  const long long units = (long long)batch * ((h + kErodeStrip - 1) / kErodeStrip)
+                          * runs_for(w, kErodeOwned);
+  if (units > INT32_MAX || 3LL * w > INT32_MAX) return (int)cudaErrorInvalidValue;
+  constexpr int kWarps = kErodeThreads / 32, kVec = 4 * kErodeWords;
+  long long blocks = (units + kWarps - 1) / kWarps;
+  if (sm_count() > 0) blocks = std::min<long long>(blocks, (long long)kErodeBlocksPerSm * sm_count());
+  const bool vec = (reinterpret_cast<uintptr_t>(rgb) | reinterpret_cast<uintptr_t>(gray)
+                    | reinterpret_cast<uintptr_t>(eroded) | (uintptr_t)(unsigned)w) % kVec == 0;
+  gray_erode3_kernel<<<(unsigned)blocks, kErodeThreads, 0,
                        reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rgb), static_cast<uint8_t*>(gray),
-      static_cast<uint8_t*>(eroded), h, w);
+      static_cast<uint8_t*>(eroded), batch, h, w, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Time several builds of one kernel source against each other.
 
     python -m tpuimage_torch.tools.time_kernel_builds
-        {bilateral,blackhat_rect,gauss_sep,hist256,inkmask,morph3,rank_extract}
+        {bilateral,blackhat_rect,clahe_apply,gauss_sep,hist256,inkmask,morph3,
+         rank_extract}
         [--source OTHER.cu ...] [--timed-only OTHER.cu ...]
         [--ksize 83 255] [--mode none sub adaptive] [--iters 1 8]
 
@@ -28,7 +29,10 @@ the paths' shapes:
   their Otsu thresholds, as chip_smoke.py phase 2 makes them, at every
   ``--iters`` (default the GUI preset's 1);
 - morph3: binary_close3 on the 8 eroded morph_seq planes (963 high, 1280
-  wide) and their Otsu thresholds, gray_erode3 on the 8 RGB photos.
+  wide) and their Otsu thresholds, gray_erode3 on the 8 RGB photos;
+- clahe_apply: the L planes of 8 median-filtered night scenes of 1280x853
+  with the night path's 8x8 tile LUTs (clip limit 2) and blend matrices,
+  as chip_smoke.py phase 7 makes them.
 
 The tree's build and every ``--source`` are held exact against the plain
 version (one that differs is named, left untimed, and the tool exits 1); a
@@ -38,7 +42,7 @@ power limit and one line per case: each build's ms for one call, the
 median of 10 samples of 20 back-to-back eager calls, and in parentheses
 its device time, the median of 5 replays of a CUDA graph of 20 calls;
 both taken in turns (a, b, .., b, a), the lower of the two kept. For
-inkmask and morph3 a third time follows in brackets: the same graph with
+inkmask, morph3 and clahe_apply a third time follows in brackets: the same graph with
 its calls rotated over copies of the inputs and outputs that total more
 than the H100's 50 MB L2, so that each call reads device memory. A hist256
 or rank_extract call zeroes its output first in every build (the first
@@ -63,8 +67,8 @@ from tpuimage_torch.pipelines import docscan, night
 
 N = 8
 PAGE, NIGHT, MORPH, PHOTO = (1200, 849), (853, 1280), (963, 1280), (1600, 1200)
-KERNELS = ("bilateral", "blackhat_rect", "gauss_sep", "hist256", "inkmask", "morph3",
-           "rank_extract")
+KERNELS = ("bilateral", "blackhat_rect", "clahe_apply", "gauss_sep", "hist256", "inkmask",
+           "morph3", "rank_extract")
 L2_BYTES = 50 << 20
 _p = ctypes.c_void_p
 
@@ -163,11 +167,7 @@ def _hist_cases(args, dev, stream):
                         torch.randint(0, 256, (1, n), generator=gen, device=dev,
                                       dtype=torch.uint8),
                         torch.full((1, n), 255, dtype=torch.uint8, device=dev)])
-    scenes = torch.from_numpy(np.stack([synth.night_scene(400 + i, *NIGHT)
-                                        for i in range(N)])).to(dev)
-    lab = kernels.rgb_to_lab(median.median_blur(scenes, 3, channels_last=True).contiguous(),
-                             color.lab_tables_on(dev))
-    tiles = histogram.clahe_tiles(lab[..., 0].contiguous(), night.TILES, night.TILES)[0]
+    tiles = histogram.clahe_tiles(_night_lum(dev), night.TILES, night.TILES)[0]
     docs = torch.from_numpy(np.stack([synth.document_photo(500 + i, *MORPH)
                                       for i in range(N)])).to(dev)
     eroded = kernels.gray_erode3(docs)[1].reshape(N, -1)
@@ -336,8 +336,41 @@ def _morph3_cases(args, dev, stream):
         yield label, out, torch.stack(want), Rotated(make, x.numel() + out.numel())
 
 
+def _night_lum(dev) -> torch.Tensor:
+    """The L planes of the 8 median-filtered night scenes (the night path's
+    CLAHE input)."""
+    scenes = torch.from_numpy(np.stack([synth.night_scene(400 + i, *NIGHT)
+                                        for i in range(N)])).to(dev)
+    filtered = median.median_blur(scenes, 3, channels_last=True).contiguous()
+    return kernels.rgb_to_lab(filtered, color.lab_tables_on(dev))[..., 0].contiguous()
+
+
+def _clahe_cases(args, dev, stream):
+    lum = _night_lum(dev)
+    tiles, th, tw = histogram.clahe_tiles(lum, night.TILES, night.TILES)
+    luts = histogram.tile_luts_from_counts(kernels.hist256_batch(tiles), night.CLIP_LIMIT,
+                                           th * tw).reshape(N, night.TILES, night.TILES, 256)
+    R, C = histogram.blend_matrices_on(*NIGHT, th, tw, night.TILES, night.TILES, dev)
+    out = torch.empty_like(lum)
+    data = {}
+
+    def make(lib, i):
+        if i not in data:
+            data[i] = ((lum, luts, out) if i == 0
+                       else (lum.clone(), luts.clone(), torch.empty_like(out)))
+        g, lt, o = data[i]
+        return lambda: _raise_on(lib.tpuimage_clahe_apply(
+            _p(g.data_ptr()), _p(lt.data_ptr()), _p(R.data_ptr()), _p(C.data_ptr()),
+            _p(o.data_ptr()), N, *NIGHT, night.TILES, night.TILES, stream),
+            "tpuimage_clahe_apply")
+
+    yield (f"8 L planes {NIGHT[1]}x{NIGHT[0]}, {night.TILES}x{night.TILES} tile LUTs", out,
+           kernels.clahe_apply_ref(lum, luts, R, C),
+           Rotated(make, lum.numel() + luts.numel() + out.numel()))
+
+
 _CASES = {"bilateral": _bilateral_cases, "blackhat_rect": _blackhat_cases,
-          "gauss_sep": _gauss_cases, "hist256": _hist_cases, "inkmask": _ink_cases,
+          "clahe_apply": _clahe_cases, "gauss_sep": _gauss_cases, "hist256": _hist_cases, "inkmask": _ink_cases,
           "morph3": _morph3_cases, "rank_extract": _rank_cases}
 
 
