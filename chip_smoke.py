@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive tpuimage_torch's paths once on one CUDA card: DocScanner's
 serving paths (scan_batch, scan_stream) and its one-document path
-(process_document), the night paths (gray and RGB) and morph_seq.
+(process_document), the night paths (gray and RGB), morph_seq and
+landscape (the GUI route and the degrade / restore evaluation).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -20,11 +21,14 @@ Phases (any failure raises and the exit code is non-zero):
    call or a short composition of calls for
    the same function, its time: hist256 and hough_votes; rank_extract on
    the same edge maps (each page one band, and tpuimage's 128-band
-   layout; its bound the mask's bytes and the slots'), beside the earlier
+   layout; its bound the mask's bytes and the slots'; library: the same
+   slots from torch.nonzero and an index put), beside the earlier
    nonzero compaction's time and compact_edges' whole device time (the
    profiler's kernel time of one call: the scan, the kernel, the
-   coordinates); the post-warp
-   chain's gauss_chain (divide k=43, sub k=51, adaptive block 31),
+   coordinates); hough_votes' library: torch.bincount over the flat
+   (image, rho, theta) bins, rho computed in the same call; the post-warp
+   chain's gauss_chain (divide k=43, sub k=51, adaptive block 31; library
+   for the first two: two cudnn conv2d passes and the epilogue's ops),
    gaussian_blur_u8 (k=43 and 51, and the wide 83 and 255), blackhat_rect
    (9x19; library: max_pool2d, 2-D or separable, the faster) and
    inkmask_weighted (library: compares, max_pool2d, where) on 8 synthetic
@@ -73,14 +77,26 @@ Phases (any failure raises and the exit code is non-zero):
    tile rows and on morph_seq's eroded planes, gray_erode3 and
    binary_close3 on 8 RGB document photos of 963x1280 (its sample.jpg;
    library: their erosion / closing as max_pool2d, 2-D or separable);
-   clahe_apply, gray_erode3 and binary_close3 beside their first designs'
-   times and with ``rotated_graph_ms``;
+   rgb_to_lab, clahe_apply, gray_erode3 and binary_close3 beside their
+   first designs' times and with ``rotated_graph_ms``; rgb_to_lab also on
+   1-17 pixels and one past the batch, inputs 0-15 bytes past a 16-byte
+   boundary, exact;
 8. the paths: ``night_rgb_batch``, ``night_gray_batch`` and
    ``morphseq_batch`` on those inputs, each with the counters reset just
    before and read just after, their MP/s, and a profiled window (device
    busy time against the CUDA-event time, kernels per call, the top
    kernels; post-warp gets the same in phase 3);
-9. card against host: two images of each path again on the CPU.
+9. card against host: two images of each path again on the CPU;
+10. landscape on 8 synthetic daylight scenes of 1280x853
+   (``synth.landscape_scene``, the size of phase 7's scenes): the kernels
+   at its shapes (rgb_to_lab on the bilateral output, gaussian_blur_u8 at
+   ksize 7 on the 24 planes of the sharpening, bilateral d 11 100/100 of
+   the restore), then ``landscape_gui`` and ``landscape_eval_batch`` (noise
+   from a seeded generator), each with the counters reset just before and
+   read just after, MP/s, a profiled window and the peak device memory;
+   card against host on 2 images; ``median_blur`` at ksize 5 and 7 and
+   ``nlm_denoise_colored`` on one scene, timed once (not on the preset's
+   path).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record (all twelve kernels, each launched on
@@ -133,7 +149,8 @@ PRE_DESKEW_KERNELS = ("gauss_chain", "blackhat_rect", "inkmask_weighted")
 # clahe_apply (a thread a column down 64 rows, the image's LUT table in
 # shared memory) and gray_erode3 (a block a 64x32 tile through shared
 # memory), the latest
-DIRECT_DESIGN_MS = {"clahe_apply": (0.0348, 0.0392),
+DIRECT_DESIGN_MS = {"rgb_to_lab": (0.0336, 0.0373),
+                    "clahe_apply": (0.0348, 0.0392),
                     "gray_erode3": (0.0488, 0.0506),
                     "inkmask_weighted": (0.0664, 0.0687),
                     "binary_close3": (0.0603, 0.0612),
@@ -157,8 +174,12 @@ DIRECT_DESIGN_MS = {"clahe_apply": (0.0348, 0.0392),
                     "gaussian_blur_u8 k=255": (3.9771, 3.9771)}
 # the same two first designs' device times (a CUDA graph of 20 calls, as
 # _compare's "graph_ms"), the same four runs: a redesigned kernel's eager time
-# through its wrapper may read the host's launch cost instead
-DIRECT_DESIGN_GRAPH_MS = {"inkmask_weighted": (0.0639, 0.0649),
+# through its wrapper may read the host's launch cost instead. rgb_to_lab
+# (a thread a pixel, byte loads and stores), redesigned last: chip_smoke.py's
+# eager times, and the device times of tools/time_kernel_builds.py beside
+# the redesign (PERF.md)
+DIRECT_DESIGN_GRAPH_MS = {"rgb_to_lab": (0.0309, 0.0316),
+                          "inkmask_weighted": (0.0639, 0.0649),
                           "binary_close3": (0.0583, 0.0587),
                           "clahe_apply": (0.0247, 0.0252),
                           "gray_erode3": (0.0464, 0.0470)}
@@ -172,6 +193,8 @@ MASK_EDGE_SHAPES = tuple((2, 37, w) for w in range(1, 10)) + ((2, 70, 849), (1, 
                                                               (1, 1200, 1))
 MASK_EDGE_THRESHOLDS = (-1.0, -0.5, 0.0, 117.5, 254.0, 255.0, 300.0, float("nan"))
 MASK_EDGE_ITERS = (0, 1, 8, 9)
+LANDSCAPE_SHARPEN_KSIZE = 7    # GaussianBlur((0, 0), sigma 1) on bytes
+PATH_STATS_TOL = (1e-4, 1e-3)  # card vs host: PSNR relative, SSIM absolute
 
 
 def _nvidia_smi() -> str:
@@ -414,6 +437,34 @@ def _compact_edges_nonzero(edges: torch.Tensor, k: int):
     return xs, ys, counts.to(torch.int32), true_counts > k
 
 
+def _rank_extract_nonzero(mask: torch.Tensor, kk: int) -> torch.Tensor:
+    """rank_extract's slots from the mask alone by torch.nonzero and an
+    index put (the compaction of ``_compact_edges_nonzero``): the library
+    yardstick, used nowhere in the port."""
+    b, p = torch.nonzero(mask.t(), as_tuple=True)      # band-major, positions ascending
+    counts = mask.sum(dim=0)
+    r = torch.arange(b.shape[0], device=mask.device) - (torch.cumsum(counts, 0) - counts)[b]
+    keep = r < kk
+    ci = torch.zeros((kk, mask.shape[1]), dtype=torch.int32, device=mask.device)
+    ci[r[keep], b[keep]] = p[keep].to(torch.int32)
+    return ci
+
+
+def _hough_bincount(xs, ys, counts, cos_t, sin_t, numrho: int, shift: int) -> torch.Tensor:
+    """hough_votes as torch.bincount over the flat (image, rho, theta) bins,
+    rho = rint(fma(x, cos, f32(y sin))) + shift computed in the same call
+    (the fma exact through f64): the library yardstick."""
+    b, k = xs.shape
+    t = cos_t.shape[0]
+    valid = torch.arange(k, device=xs.device)[None, :] < counts[:, None]
+    img = torch.arange(b, device=xs.device)[:, None].expand(b, k)[valid]
+    x, y = xs[valid].to(torch.float64)[:, None], ys[valid].to(torch.float32)[:, None]
+    rho = torch.round((x * cos_t.double()[None, :] + (y * sin_t[None, :]).double())
+                      .to(torch.float32)).to(torch.int64) + shift
+    flat = (img[:, None] * numrho + rho) * t + torch.arange(t, device=xs.device)[None, :]
+    return torch.bincount(flat.reshape(-1), minlength=b * numrho * t).view(b, numrho, t)
+
+
 def _rank_planes(edges: torch.Tensor, k: int, tpu_layout: bool = False):
     """rank_extract's inputs for a (B, H, W) edge batch as compact_edges
     makes them: each image's flat plane one band, given as the (H*W, B)
@@ -527,11 +578,11 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from tpuimage_torch import synth
     from tpuimage_torch.core.borders import pad2d
-    from tpuimage_torch.ops import (bilateral, color, edges, filters, histogram, hough,
-                                    kernels, median)
+    from tpuimage_torch.ops import (arith, bilateral, color, edges, filters, histogram, hough,
+                                    kernels, median, nlm)
     from tpuimage_torch.ops.color import rgb_to_gray
     from tpuimage_torch.ops.filters import gaussian_kernel_q8
-    from tpuimage_torch.pipelines import docscan, morphseq, night
+    from tpuimage_torch.pipelines import docscan, landscape, morphseq, night
 
     dev = torch.device("cuda")
     cfg = docscan.GUI_DOCUMENT_CONFIG
@@ -603,7 +654,7 @@ def main() -> int:
             f"hough_votes ({what}: {N_REQUESTS} edge maps {h}x{w}, "
             f"{int(counts.max())} edges max)",
             lambda: kernels.hough_votes(*args), lambda: kernels.hough_votes_ref(*args), bound,
-            plain_calls=5))
+            [lambda: _hough_bincount(*args)], plain_calls=5))
         _beside_direct_design(f"hough_votes {what}", hough_recs[-1])
         # the same lengths at random coordinates: no run of neighbours
         # shares a bin, so what is left is the kernel's floor on its atomics
@@ -618,7 +669,8 @@ def main() -> int:
         **hough_recs[0], "max_abs_err": max(r["max_abs_err"] for r in hough_recs),
         "localize_ms": hough_recs[1]["ms"], "localize_plain_ms": hough_recs[1]["plain_ms"],
         "localize_bound_ms": hough_recs[1]["bound_ms"],
-        "localize_random_coords_ms": hough_recs[1]["random_coords_ms"]}
+        "localize_random_coords_ms": hough_recs[1]["random_coords_ms"],
+        "localize_library_ms": hough_recs[1]["library_ms"]}
     for name, xs_n, ys_n, counts_n, h, w in synth.hough_stress_cases():
         numrho = (h + w) * 2 + 1
         args = (*(torch.from_numpy(a).to(dev) for a in (xs_n, ys_n, counts_n)), cos_t, sin_t,
@@ -640,7 +692,8 @@ def main() -> int:
             f"{h}x{w}, plane {tuple(mask.shape)}, kk {kk}, {int(mask.sum())} edges)",
             lambda rank=rank, mask=mask, kk=kk: kernels.rank_extract(rank, mask, kk),
             lambda rank=rank, mask=mask, kk=kk: kernels.rank_extract_ref(rank, mask, kk),
-            _rank_bound(mask, kk), plain_calls=5)
+            _rank_bound(mask, kk), [lambda mask=mask, kk=kk: _rank_extract_nonzero(mask, kk)],
+            plain_calls=5)
         _beside_direct_design(f"rank_extract {what}", rank_recs[what])
         if not tpu:
             k = hough.default_max_edges(h, w)
@@ -672,21 +725,34 @@ def main() -> int:
     q8_bound = lambda k: _bound(2 * n_px + 4 * k, 2 * 2 * k * n_px,  # noqa: E731
                                 INT8_TENSOR_OPS_PER_S)
     adaptive_bound = _bound(2 * n_px + 4 * ab, 2 * (1 + 3 * (ab // 2)) * n_px)
+    # the library yardsticks' cudnn convolutions in f32, so their integer sums are exact
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
     chain = {}
     for what, x, k, mode, C, bound in (("divide", gray_d, ik, "divide", 0.0, q8_bound(ik)),
                                         ("sub", stretched, mk, "sub", 0.0, q8_bound(mk)),
                                         ("adaptive", stretched, ab, "adaptive", cfg.C,
                                          adaptive_bound)):
+        library = ()
+        if mode != "adaptive":   # the f32 blur has no exact cudnn form
+            padded = pad2d(x.to(torch.float32), k // 2, k // 2, k // 2, k // 2)[:, None]
+            taps = torch.from_numpy(gaussian_kernel_q8(k).astype(np.float32)).to(dev)
+            epilogue = ((lambda x, blur: arith.divide_u8(x, blur, scale=255)) if mode == "divide"
+                        else (lambda x, blur: arith.subtract_u8(blur, x)))
+            library = [lambda x=x, padded=padded, taps=taps, epilogue=epilogue:
+                       epilogue(x, _conv_blur_u8(padded, taps))]
         chain[what] = _compare(
-            f"gauss_chain {mode} k={k} ({N_REQUESTS} A4 planes {PAGE[1]}x{PAGE[0]})",
+            f"gauss_chain {mode} k={k} ({N_REQUESTS} A4 planes {PAGE[1]}x{PAGE[0]}"
+            + ("; library: two cudnn conv2d 1-D passes, rounding, the epilogue's ops)"
+               if library else ")"),
             lambda x=x, k=k, mode=mode, C=C: kernels.gauss_chain(x, k, mode, C),
-            lambda x=x, k=k, mode=mode, C=C: kernels.gauss_chain_ref(x, k, mode, C), bound)
+            lambda x=x, k=k, mode=mode, C=C: kernels.gauss_chain_ref(x, k, mode, C), bound,
+            library)
         _beside_direct_design(f"gauss_chain {what}", chain[what])
+        del library
     records["gauss_chain"] = chain["divide"]
     for what in ("sub", "adaptive"):
         _sub_record(records["gauss_chain"], what, chain[what])
-    cudnn_tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
     blur = {}
     for x, k in ((gray_d, ik), (stretched, mk)):
         padded = pad2d(x.to(torch.float32), k // 2, k // 2, k // 2, k // 2)[:, None]
@@ -1052,6 +1118,25 @@ def main() -> int:
         lambda: kernels.rgb_to_lab(filtered, tables),
         lambda: kernels.rgb_to_lab_ref(filtered, tables),
         _bound(6 * n_night + 4 * tables.numel(), 47 * n_night))
+    _beside_direct_design("rgb_to_lab", records["rgb_to_lab"])
+    _rotated("rgb_to_lab", records["rgb_to_lab"],
+             lambda c: lambda: kernels.rgb_to_lab(c[0], tables), (filtered,))
+    # at the edges: 1-17 pixels and one past the batch, the input 0-15
+    # bytes past a 16-byte boundary (the kernel reads aligned words)
+    flat = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, 3 * (n_night + 1) + 16, dtype=np.uint8)).to(dev)
+    n_cases = 0
+    for n_pix in (*range(1, 18), n_night + 1):
+        for off in range(16):
+            x = flat[off:off + 3 * n_pix].view(n_pix, 3)
+            if x.data_ptr() % 16 != (flat.data_ptr() + off) % 16:
+                raise AssertionError("the input does not start where it was asked to")
+            _exact(f"rgb_to_lab {n_pix} pixels at byte offset {off}",
+                   lambda: kernels.rgb_to_lab(x, tables), lambda: kernels.rgb_to_lab_ref(x, tables))
+            n_cases += 1
+    print(f"rgb_to_lab on 1-17 and {n_night + 1} pixels, inputs 0-15 bytes past a 16-byte "
+          f"boundary: {n_cases} cases exact")
+    del flat, x
     lum = kernels.rgb_to_lab(filtered, tables)[..., 0].contiguous()
     tiles, th, tw = histogram.clahe_tiles(lum, night.TILES, night.TILES)
     clahe_hist = _compare(
@@ -1173,6 +1258,127 @@ def main() -> int:
                 raise AssertionError(f"{name} {k}: {n_diff} pixels differ card vs host")
             print(f"card vs host, {name} {k} (images {pick}): {n_diff} of {diff.size} "
                   f"values differ, max |diff| {int(diff.max())}")
+
+    # --- 10. landscape -----------------------------------------------------
+    print(f"[phase 10 at {time.perf_counter() - t_start:.1f} s]")
+    land = np.stack([synth.landscape_scene(600 + i, *NIGHT) for i in range(N_REQUESTS)])
+    land_d = torch.from_numpy(land).to(dev)
+    # the kernels at the path's shapes: rgb_to_lab on the bilateral output
+    # (landscape_gui's CLAHE input), the sharpening's blur of the 24 planes
+    # after the CLAHE, the restore's bilateral d 11 100/100
+    denoised = landscape.denoise_image(land_d, "bilateral", 5, False)
+    lab_rec = _compare(
+        f"rgb_to_lab ({N_REQUESTS} bilateral-filtered landscape scenes {NIGHT[1]}x{NIGHT[0]})",
+        lambda: kernels.rgb_to_lab(denoised, tables), lambda: kernels.rgb_to_lab_ref(denoised, tables),
+        _bound(6 * n_night + 4 * tables.numel(), 47 * n_night))
+    _sub_record(records["rgb_to_lab"], "landscape", lab_rec)
+    contrast = landscape.enhance_contrast_clahe(denoised, 2.2, (8, 8), 2.0, 0.55)
+    planes = contrast.movedim(-1, -3).reshape(-1, *NIGHT).contiguous()
+    k = LANDSCAPE_SHARPEN_KSIZE
+    n_planes = planes.numel()
+    padded = pad2d(planes.to(torch.float32), k // 2, k // 2, k // 2, k // 2)[:, None]
+    taps = torch.from_numpy(gaussian_kernel_q8(k, 1.0).astype(np.float32)).to(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    blur7 = _compare(
+        f"gaussian_blur_u8 k={k} sigma 1 ({planes.shape[0]} landscape planes "
+        f"{NIGHT[1]}x{NIGHT[0]}; library: two cudnn conv2d 1-D passes + rounding)",
+        lambda: kernels.gaussian_blur_u8(planes, k, 1.0),
+        lambda: kernels.gaussian_blur_u8_ref(planes, k, 1.0),
+        _bound(2 * n_planes + 4 * k, 2 * 2 * k * n_planes, INT8_TENSOR_OPS_PER_S),
+        [lambda: _conv_blur_u8(padded, taps)])
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    _sub_record(records["gaussian_blur_u8"], f"landscape_k{k}", blur7)
+    del padded, planes
+    radius, btaps, space_w, lut = bilateral.tables_on(11, 100.0, 100.0, 3, dev)
+    _exact(f"bilateral d=11 100/100 ({N_REQUESTS} landscape scenes, {btaps.shape[0]} taps)",
+           lambda: kernels.bilateral(land_d, btaps, space_w, lut, radius),
+           lambda: kernels.bilateral_ref(land_d, btaps, space_w, lut, radius))
+    print(f"bilateral d=11 100/100 on {N_REQUESTS} landscape scenes: exact")
+    del denoised, contrast
+
+    # the degrade's noise, drawn once from a seeded generator: the same on the card and the host
+    noise = torch.randn(land.shape, generator=torch.Generator().manual_seed(11))
+    noise_d = noise.to(dev)
+    land_paths = (
+        ("landscape_gui", lambda x, nz, **kw: landscape.landscape_gui(x, **kw)),
+        ("landscape_eval_batch",
+         lambda x, nz, **kw: landscape.landscape_eval_batch(x, noise=nz, **kw)))
+    needed = ("bilateral", "rgb_to_lab", "hist256", "clahe_apply", "gaussian_blur_u8")
+    land_card = {}
+    for name, fn in land_paths:
+        fn(land, noise_d)                                     # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn(land, noise_d)                               # an array: on the card by default
+        torch.cuda.synchronize()
+        for k_, v in _launched(name, kernels.launch_counts(), needed).items():
+            launches[k_] += v
+        outs = out if isinstance(out, dict) else {"enhanced": out}
+        for k_, v in outs.items():
+            want = (N_REQUESTS,) if v.dim() == 1 else (N_REQUESTS, *NIGHT, 3)
+            if v.device.type != "cuda" or tuple(v.shape) != want:
+                raise AssertionError(f"{name} {k_}: {v.device} {v.dtype} {tuple(v.shape)}")
+            if v.dim() == 1 and not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{name} {k_}: {v.tolist()}")
+        if not bool((outs["enhanced"] != torch.from_numpy(land).to(dev)).any()):
+            raise AssertionError(f"{name}: the scenes came back unchanged")
+        if isinstance(out, dict):
+            print(f"{name}: PSNR enhanced {[round(v, 2) for v in out['psnr_enhanced'].tolist()]}, "
+                  f"restored {[round(v, 2) for v in out['psnr_restored'].tolist()]}; SSIM "
+                  f"enhanced {[round(v, 4) for v in out['ssim_enhanced'].tolist()]}, restored "
+                  f"{[round(v, 4) for v in out['ssim_restored'].tolist()]}")
+        land_card[name] = {k_: v[pick].cpu() for k_, v in outs.items()}
+        del out, outs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2 ** 20
+        ms = _cuda_ms(lambda: fn(land_d, noise_d), reps=3, calls=5)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"{name}: {ms:.3f} ms per batch of {N_REQUESTS} {NIGHT[1]}x{NIGHT[0]} = "
+              f"{N_REQUESTS * NIGHT[0] * NIGHT[1] / 1e3 / ms:.1f} MP/s (CUDA events, warm, median "
+              f"of 3 runs of 5 calls, input on the card); device memory: peak "
+              f"{peak_mb - base_mb:.1f} MiB above the {base_mb:.1f} MiB held before the calls")
+        _print_profile(name, ms, lambda: fn(land_d, noise_d))
+    # card against host, two scenes, the same noise on both
+    host_x = land[pick]
+    for name, fn in land_paths:
+        host = fn(host_x, noise[pick], device="cpu")
+        host = host if isinstance(host, dict) else {"enhanced": host}
+        card_two = fn(torch.from_numpy(host_x).to(dev), noise_d[pick])
+        card_two = card_two if isinstance(card_two, dict) else {"enhanced": card_two}
+        for k_, h in host.items():
+            c = card_two[k_].cpu()
+            if h.dim() == 1:
+                rel, tol_ssim = PATH_STATS_TOL
+                tol = rel * h.abs() if k_.startswith("psnr") else torch.full_like(h, tol_ssim)
+                if not bool(((c - h).abs() <= tol).all()):
+                    raise AssertionError(f"{name} {k_}: card {c.tolist()} vs host {h.tolist()}")
+                print(f"card vs host, {name} {k_}: {c.tolist()} vs {h.tolist()}")
+                continue
+            diff = (c.to(torch.int32) - h.to(torch.int32)).abs()
+            n_diff = int((diff > 0).sum())
+            max_levels, max_share = NIGHT_RGB_TOL
+            if int(diff.max()) > max_levels or n_diff >= max_share * diff.numel():
+                raise AssertionError(f"{name} {k_}: {n_diff} of {diff.numel()} values differ, "
+                                     f"by up to {int(diff.max())}")
+            print(f"card vs host, {name} {k_} (scenes {pick}): {n_diff} of {diff.numel()} values "
+                  f"differ, max |diff| {int(diff.max())}")
+        if name == "landscape_gui":
+            # the batch run's two scenes equal this run's: one image's result
+            # does not depend on the others in its batch
+            if not torch.equal(land_card[name]["enhanced"], card_two["enhanced"].cpu()):
+                raise AssertionError("landscape_gui: batch of 8 and batch of 2 differ")
+    del host, card_two
+    # the denoise options off the preset's path, timed once each
+    for k_ in (5, 7):
+        ms = _cuda_ms(lambda: median.median_blur(land_d, k_, channels_last=True), reps=1, calls=1)
+        print(f"median_blur k={k_} on {N_REQUESTS} landscape scenes {NIGHT[1]}x{NIGHT[0]} "
+              f"(channel-last, {k_ * k_} views, odd-even sort): {ms:.2f} ms (one warm call)")
+    one = land_d[:1].contiguous()
+    ms = _cuda_ms(lambda: nlm.nlm_denoise_colored(one, 10.0, 10.0), reps=1, calls=1)
+    print(f"nlm_denoise_colored h 10 on 1 landscape scene {NIGHT[1]}x{NIGHT[0]} (search 21, "
+          f"template 7): {ms:.1f} ms (one warm call)")
+    del land_d, one, noise_d
 
     torch.cuda.synchronize()
     jax_side = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpuimage")]

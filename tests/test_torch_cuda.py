@@ -810,3 +810,127 @@ def test_pre_deskew_mean_threshold_on_card(cuda_device, a4_planes):
         "gauss_chain": 2, "blackhat_rect": 1, "inkmask_weighted": 1, "hist256": 1}, counts
     for k, v in host.items():
         assert torch.equal(out[k].cpu(), v), k
+
+
+# ---------------------------------------------------------------------------
+# rgb_to_lab (redesigned: warp runs of 512 pixels staged through shared
+# memory, inputs read as aligned 16-byte words) and the landscape slice
+# ---------------------------------------------------------------------------
+
+LAB_EDGE_PIXELS = (*range(1, 18), 47, 48, 49, 511, 512, 513, 1537, 4096 + 11,
+                   8 * 853 * 1280 + 1)
+
+
+@pytest.fixture(scope="module")
+def lab_bytes():
+    n = 3 * LAB_EDGE_PIXELS[-1] + 32
+    return torch.from_numpy(np.random.default_rng(17).integers(0, 256, n, dtype=np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(16))
+@pytest.mark.parametrize("n_pix", LAB_EDGE_PIXELS)
+def test_rgb_to_lab_kernel_at_edge_shapes_and_offsets(cuda_device, lab_bytes, n_pix, offset):
+    """Pixel counts around a lane's 16 and a warp's 512, and one past 8
+    night scenes of 1280x853; inputs 0-15 bytes past a 16-byte boundary;
+    an output written only where it lies."""
+    flat = lab_bytes.to(cuda_device)
+    x = flat[offset:offset + 3 * n_pix].view(n_pix, 3)
+    assert (x.data_ptr() - flat.data_ptr()) == offset and flat.data_ptr() % 16 == 0
+    tables = color.lab_tables_on(cuda_device)
+    out = _count("rgb_to_lab", lambda: kernels.rgb_to_lab(x, tables))
+    assert torch.equal(out, kernels.rgb_to_lab_ref(x, tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables_kind", ["gamma_x2", "negative_coefficient"])
+@pytest.mark.parametrize("offset", [0, 5])
+def test_rgb_to_lab_kernel_with_tables_past_the_cube_root(cuda_device, lab_bytes, tables_kind,
+                                                         offset):
+    """Tables whose cube-root index leaves the table (above it, below 0):
+    the kernel's clamped form, equal to the plain version's clamp."""
+    t = color.lab_tables_on(torch.device("cpu")).clone()
+    if tables_kind == "gamma_x2":
+        t[:256] *= 2
+    else:
+        t[-8] = -t[-8]
+    n_pix = 4096 + 11
+    x = lab_bytes[offset:offset + 3 * n_pix].view(n_pix, 3)
+    out = _count("rgb_to_lab", lambda: kernels.rgb_to_lab(x.to(cuda_device), t.to(cuda_device)))
+    assert torch.equal(out.cpu(), kernels.rgb_to_lab_ref(x, t))
+
+
+@pytest.mark.cuda
+def test_rgb_to_lab_kernel_into_an_unaligned_output(cuda_device, lab_bytes):
+    """The C entry point with an output 3 bytes past a 16-byte boundary
+    (the wrapper allocates aligned outputs; the kernel then stores bytes)."""
+    import ctypes
+    lib = kernels._load()
+    n_pix = 4096 + 11
+    x = lab_bytes[:3 * n_pix].to(cuda_device)
+    tables = color.lab_tables_on(cuda_device)
+    buf = torch.full((3 * n_pix + 32,), 0x5A, dtype=torch.uint8, device=cuda_device)
+    rc = lib.tpuimage_rgb_to_lab(x.data_ptr(), buf[3:].data_ptr(), tables.data_ptr(), n_pix,
+                                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(buf[3:3 + 3 * n_pix], kernels.rgb_to_lab_ref(x.view(n_pix, 3), tables)
+                       .reshape(-1))
+    assert bool((buf[:3] == 0x5A).all()) and bool((buf[3 + 3 * n_pix:] == 0x5A).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 853, 1280, 3), (48, 64, 3), (3, 37, 53, 3)])
+def test_gaussian_blur_u8_channels_last_on_card(cuda_device, shape):
+    """landscape's sharpening blur (sigma 1, ksize 7) of (..., H, W, 3)
+    images: the kernel on the channel planes, card = host."""
+    from tpuimage_torch.ops import filters
+    x = torch.from_numpy(np.random.default_rng(len(shape)).integers(0, 256, shape,
+                                                                     dtype=np.uint8))
+    out = _count("gaussian_blur_u8", lambda: filters.gaussian_blur_u8(
+        x.to(cuda_device), ksize=0, sigma=1.0, channels_last=True))
+    assert out.shape == x.shape and out.is_contiguous()
+    assert torch.equal(out.cpu(), filters.gaussian_blur_u8(x, ksize=0, sigma=1.0,
+                                                           channels_last=True))
+
+
+def _landscape_within(card, host, what):
+    """Card against host: the night_rgb tolerance (lab_to_rgb runs in f32
+    on both): at most 3 levels on < 0.1% of values."""
+    diff = (card.cpu().to(torch.int32) - host.to(torch.int32)).abs()
+    assert int(diff.max()) <= 3, (what, int(diff.max()))
+    assert int((diff > 0).sum()) < 0.001 * diff.numel(), (what, int((diff > 0).sum()))
+
+
+@pytest.fixture(scope="module")
+def landscape_scenes():
+    return np.stack([synth.landscape_scene(700 + i, 120, 176) for i in range(2)])
+
+
+@pytest.mark.cuda
+def test_landscape_gui_on_card_equals_host(cuda_device, landscape_scenes):
+    from tpuimage_torch.pipelines import landscape
+    kernels.reset_launch_counts()
+    card = landscape.landscape_gui(landscape_scenes)          # an array: on the card
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name in ("bilateral", "rgb_to_lab", "hist256", "clahe_apply", "gaussian_blur_u8"):
+        assert counts[name] > 0, (name, counts)
+    assert card.device.type == "cuda"
+    _landscape_within(card, landscape.landscape_gui(landscape_scenes, device="cpu"), "gui")
+
+
+@pytest.mark.cuda
+def test_landscape_eval_batch_on_card_equals_host(cuda_device, landscape_scenes):
+    from tpuimage_torch.pipelines import landscape
+    noise = torch.randn(landscape_scenes.shape, generator=torch.Generator().manual_seed(3))
+    card = landscape.landscape_eval_batch(landscape_scenes, noise=noise.to(cuda_device))
+    host = landscape.landscape_eval_batch(landscape_scenes, noise=noise, device="cpu")
+    assert torch.equal(card["degraded"].cpu(), host["degraded"])
+    for k in ("enhanced", "restored"):
+        _landscape_within(card[k], host[k], k)
+    for k in ("psnr_enhanced", "psnr_restored"):
+        assert card[k].shape == (2,)
+        assert torch.allclose(card[k].cpu(), host[k], rtol=1e-4, atol=0), k
+    for k in ("ssim_enhanced", "ssim_restored"):
+        assert torch.allclose(card[k].cpu(), host[k], rtol=0, atol=1e-3), k

@@ -236,6 +236,19 @@ def test_rgb_to_lab_ref_matches_pallas(rng):
                                   np.asarray(jcolor.rgb_to_lab(jnp.asarray(x), impl="xla")))
 
 
+@pytest.mark.parametrize("n_pix", [1, 2, 15, 17, 511, 513, 4107])
+def test_rgb_to_lab_ref_on_odd_pixel_counts(rng, n_pix):
+    """Pixel counts off the card kernel's runs of 16 and 512 (its tails),
+    as (1, n, 3) images: the plain version equals tpuimage's Pallas kernel
+    (interpreted, rows padded to its 128-lane bands) and XLA path."""
+    x = rng.integers(0, 256, (1, n_pix, 3), dtype=np.uint8)
+    ours = kernels.rgb_to_lab_ref(torch.from_numpy(x), color.lab_tables_on(torch.device("cpu")))
+    np.testing.assert_array_equal(ours.numpy(),
+                                  np.asarray(rgb_to_lab_pallas(jnp.asarray(x), interpret=True)))
+    np.testing.assert_array_equal(ours.numpy(),
+                                  np.asarray(jcolor.rgb_to_lab(jnp.asarray(x), impl="xla")))
+
+
 @pytest.mark.parametrize("shape", [(128, 160), (97, 131)])
 def test_clahe_apply_ref_matches_pallas(rng, shape):
     """Random u8-valued LUTs and tpuimage's blend matrices: max |diff| <= 1

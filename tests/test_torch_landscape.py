@@ -1,0 +1,380 @@
+"""The landscape slice of tpuimage_torch (channel-last Gaussian blur,
+add_weighted, RGB <-> HSV, PSNR / SSIM, NLM, and the landscape pipeline)
+against tpuimage (JAX on the CPU), on seeded inputs
+(``tpuimage_torch.synth.landscape_scene`` and random arrays).
+
+Tolerances, each stated where it is checked:
+- exact (max |diff| 0): the channel-last blur, add_weighted on all byte
+  pairs at the sharpening weights, RGB -> HSV, HSV -> RGB on the full
+  180x256x256 grid, the sky-blend and degrade tables, degrade_image,
+  the median and sharpening stages;
+- PSNR within 1e-5 relative, SSIM and its map within 1e-5 absolute, on
+  the same images;
+- NLM and the bilateral stage: |diff| <= 1 on < 0.5% of values;
+- the CLAHE stage on tpuimage's denoised image, and the whole paths:
+  measured max |diff| 2 (CLAHE) and 4 (paths) where a cvRound tie of
+  the CLAHE blend moves L by one and lab_to_rgb amplifies it; held at
+  max |diff| <= 4, |diff| > 1 on < 0.5% and any difference on < 1.5% of
+  values (measured at most 0.36% and 0.90%);
+- the pipeline's metrics, whose images differ within the above: PSNR
+  within 1e-4 relative, SSIM within 1e-3 (measured 3.5e-5, 2.4e-4).
+"""
+import functools
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from tpuimage.core.dtypes import f32 as jf32
+from tpuimage.core.dtypes import trunc_u8 as jtrunc_u8
+from tpuimage.ops import arith as jarith
+from tpuimage.ops import color as jcolor
+from tpuimage.ops import filters as jfilters
+from tpuimage.ops import metrics as jmetrics
+from tpuimage.ops import nlm as jnlm
+from tpuimage.pipelines import landscape as jland
+
+from tpuimage_torch import synth
+from tpuimage_torch.ops import arith, color, filters, metrics, nlm
+from tpuimage_torch.pipelines import landscape
+
+# one intra-op thread: pytest-xdist runs several workers side by side
+torch.set_num_threads(1)
+
+PATH_TOL = (4, 0.015, 0.005)     # max |diff|, share > 0, share > 1
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))     # a writable, contiguous copy
+
+
+def _diff(ours, ref):
+    ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
+    ref = np.asarray(ref)
+    assert ours.shape == ref.shape and ours.dtype == ref.dtype, (ours.shape, ref.shape)
+    return np.abs(ours.astype(np.int64) - ref.astype(np.int64))
+
+
+def _assert_within(ours, ref, max_diff, share_any, share_over_1=None):
+    d = _diff(ours, ref)
+    assert d.max() <= max_diff, d.max()
+    assert (d > 0).mean() < share_any, ((d > 0).sum(), d.size)
+    if share_over_1 is not None:
+        assert (d > 1).mean() < share_over_1, ((d > 1).sum(), d.size)
+
+
+IMAGES = {"scene48x64": lambda: synth.landscape_scene(11, 48, 64),
+          "scene37x53": lambda: synth.landscape_scene(12, 37, 53),
+          "random37x53": lambda: np.random.default_rng(5).integers(0, 256, (37, 53, 3),
+                                                                   dtype=np.uint8)}
+
+
+# ---------------------------------------------------------------------------
+# ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,sigma", [((48, 64, 3), 1.0), ((37, 53, 3), 2.0)])
+def test_gaussian_blur_channels_last_matches_tpuimage(shape, sigma):
+    """tpuimage blurs an (H, W, 3) image over H and W; so does the port with
+    ``channels_last``. The call without it blurs each (W, 3) plane of the
+    image, which differs."""
+    x = np.random.default_rng(3).integers(0, 256, shape, dtype=np.uint8)
+    ref = np.asarray(jfilters.gaussian_blur_u8(jnp.asarray(x), ksize=0, sigma=sigma))
+    ours = filters.gaussian_blur_u8(_t(x), ksize=0, sigma=sigma, channels_last=True)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    old = filters.gaussian_blur_u8(_t(x), ksize=0, sigma=sigma)
+    assert (old.numpy() != ref).mean() > 0.5
+    batch = filters.gaussian_blur_u8(_t(np.stack([x, x[::-1]])), ksize=0, sigma=sigma,
+                                     channels_last=True)
+    np.testing.assert_array_equal(batch[0].numpy(), ref)
+
+
+@pytest.mark.parametrize("amount", [0.8, 0.8 * 0.7])    # enhance_image, is_noisy False / True
+def test_add_weighted_on_all_byte_pairs(amount):
+    a, b = np.meshgrid(np.arange(256, dtype=np.uint8), np.arange(256, dtype=np.uint8),
+                       indexing="ij")
+    alpha, beta = 1.0 + amount, -amount
+    ref = np.asarray(jax.jit(lambda a, b: jarith.add_weighted(a, alpha, b, beta, 0.0))(a, b))
+    np.testing.assert_array_equal(arith.add_weighted(_t(a), alpha, _t(b), beta).numpy(), ref)
+
+
+def test_rgb_to_hsv_on_a_colour_grid():
+    grid = np.stack(np.meshgrid(*[np.arange(0, 256, 3, dtype=np.uint8)] * 3, indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+    np.testing.assert_array_equal(color.rgb_to_hsv(_t(grid)).numpy(),
+                                  np.asarray(jax.jit(jcolor.rgb_to_hsv)(grid)))
+
+
+def test_hsv_to_rgb_on_the_full_grid():
+    """All 180 x 256 x 256 HSV bytes, against tpuimage's jitted function
+    (which fuses ``1 - s * f`` into one multiply-add): exact."""
+    h, s, v = np.meshgrid(np.arange(180, dtype=np.uint8), np.arange(256, dtype=np.uint8),
+                          np.arange(256, dtype=np.uint8), indexing="ij")
+    hsv = np.stack([h, s, v], axis=-1).reshape(-1, 3)
+    np.testing.assert_array_equal(color.hsv_to_rgb(_t(hsv)).numpy(),
+                                  np.asarray(jax.jit(jcolor.hsv_to_rgb)(hsv)))
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (37, 53, 3)])
+def test_metrics_match_tpuimage(shape):
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 256, shape, dtype=np.uint8)
+    b = np.clip(a.astype(np.int64) + rng.integers(-25, 26, shape), 0, 255).astype(np.uint8)
+    b[:9, :11] = a[:9, :11]                         # equal patches: zero variance terms
+    a[20:30, 5:25] = b[20:30, 5:25] = 77
+    p_ref = float(jax.jit(jmetrics.psnr)(a, b))
+    assert abs(float(metrics.psnr(_t(a), _t(b))) - p_ref) <= 1e-5 * abs(p_ref)
+    assert abs(float(metrics.mse(_t(a), _t(b))) - float(jmetrics.mse(a, b))) <= 1e-5 * float(
+        jmetrics.mse(a, b))
+    assert abs(float(metrics.ssim(_t(a), _t(b))) - float(jax.jit(jmetrics.ssim)(a, b))) <= 1e-5
+    m = metrics.ssim_map(_t(a), _t(b)).numpy()
+    m_ref = np.asarray(jax.jit(jmetrics.ssim_map)(a, b))
+    assert m.shape == m_ref.shape
+    assert np.abs(m - m_ref).max() <= 1e-5
+    assert float(metrics.psnr(_t(a), _t(a))) == float("inf")
+    stats, stats_ref = metrics.image_stats(_t(a)), jmetrics.image_stats(a)
+    for k in stats:
+        assert abs(float(stats[k]) - float(stats_ref[k])) <= 1e-5 * float(stats_ref[k])
+
+
+def test_metrics_per_image_over_a_batch():
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 256, (3, 30, 41), dtype=np.uint8)
+    b = np.clip(a.astype(np.int64) + rng.integers(-40, 41, a.shape) * np.array(
+        [1, 2, 4])[:, None, None], 0, 255).astype(np.uint8)
+    ps = metrics.psnr(_t(a), _t(b), batch_dims=1)
+    ss = metrics.ssim(_t(a), _t(b), batch_dims=1)
+    assert ps.shape == ss.shape == (3,)
+    for i in range(3):
+        assert float(ps[i]) == float(metrics.psnr(_t(a[i]), _t(b[i])))
+        assert float(ss[i]) == float(metrics.ssim(_t(a[i]), _t(b[i])))
+    assert len(set(ps.tolist())) == 3
+
+
+def test_nlm_denoise_within_contract():
+    """Search window 21, template 7, on a 24x32 noisy scene: the colour form
+    (Lab split) and the gray form, |diff| <= 1 on < 0.5% of values (the f32
+    exp and the weighted sums' rounding)."""
+    rng = np.random.default_rng(4)
+    x = np.clip(synth.landscape_scene(4, 24, 32).astype(np.int64)
+                + rng.normal(0, 12, (24, 32, 3)), 0, 255).astype(np.uint8)
+    ref = jax.jit(jnlm.nlm_denoise_colored, static_argnums=(1, 2))(x, 10.0, 10.0)
+    _assert_within(nlm.nlm_denoise_colored(_t(x), 10.0, 10.0), ref, 1, 0.005)
+    g = np.ascontiguousarray(x[..., 1])
+    ref = jax.jit(jnlm.nlm_denoise, static_argnums=(1,))(g, 15.0)
+    _assert_within(nlm.nlm_denoise(_t(g), 15.0), ref, 1, 0.005)
+    two = nlm.nlm_denoise(_t(np.stack([g, g[::-1]])), 15.0)
+    np.testing.assert_array_equal(two[0].numpy(), nlm.nlm_denoise(_t(g), 15.0).numpy())
+
+
+# ---------------------------------------------------------------------------
+# the landscape pipeline's tables and stages
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sky_power,blend", [(2.0, 0.55), (3.0, 0.6), (2.5, 0.6)])
+def test_sky_blend_table_on_all_byte_pairs(sky_power, blend):
+    """The table against tpuimage's sky blend (landscape.py, the lines of
+    enhance_contrast_clahe from l_norm to l_final), jitted, on all 65,536
+    (L, CLAHE L) pairs: exact."""
+    def blend_fn(l_orig, l_clahe):
+        l_norm = jf32(l_orig) / 255.0
+        protection = jnp.power(l_norm, sky_power)
+        enhance_weight = (1.0 - protection) * blend
+        return jtrunc_u8(jf32(l_clahe) * enhance_weight + jf32(l_orig) * (1.0 - enhance_weight))
+
+    lo, lc = np.meshgrid(np.arange(256, dtype=np.uint8), np.arange(256, dtype=np.uint8),
+                         indexing="ij")
+    np.testing.assert_array_equal(landscape.sky_blend_table(sky_power, blend),
+                                  np.asarray(jax.jit(blend_fn)(lo, lc)))
+
+
+@pytest.mark.parametrize("contrast,underexposure", [(0.7, 0.85), (0.6, 0.8), (0.5, 1.0)])
+def test_degrade_tone_table_on_all_bytes(contrast, underexposure):
+    """The table against degrade_image's first lines (contrast, gamma,
+    truncation), jitted: exact."""
+    def tone(v):
+        x = jf32(v) / 255.0
+        x = x * contrast + 0.5 * (1.0 - contrast)
+        x = jnp.power(jnp.maximum(x, 0.0), 1.0 / underexposure)
+        return jtrunc_u8(x * 255.0)
+
+    np.testing.assert_array_equal(landscape.degrade_tone_table(contrast, underexposure),
+                                  np.asarray(jax.jit(tone)(np.arange(256, dtype=np.uint8))))
+
+
+def _noise(key, shape):
+    """tpuimage's draw for ``key``, computed once and handed to the port."""
+    return np.asarray(jax.random.normal(key, shape, dtype=jnp.float32))
+
+
+@pytest.mark.parametrize("name", sorted(IMAGES))
+def test_degrade_image_exact(name):
+    x = IMAGES[name]()
+    key = jax.random.PRNGKey(21)
+    ref = np.asarray(jax.jit(jland.degrade_image)(x, key))
+    ours = landscape.degrade_image(_t(x), noise=_t(_noise(key, x.shape)))
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    cfg = {"contrast_reduction": 0.6, "underexposure": 0.8, "noise_amount": 0,
+           "saturation_reduction": 0.5}
+    np.testing.assert_array_equal(landscape.degrade_image(_t(x), config=cfg).numpy(),
+                                  np.asarray(jax.jit(jland.degrade_image, static_argnums=(2,))(
+                                      x, key, _Hashable(cfg))))
+
+
+class _Hashable(dict):
+    """A config dict tpuimage's jit can take as a static argument."""
+
+    def __hash__(self):
+        return hash(tuple(sorted(self.items())))
+
+
+def test_degrade_draws_from_a_generator():
+    x = _t(IMAGES["scene37x53"]())
+    one = landscape.degrade_image(x, torch.Generator().manual_seed(5))
+    assert torch.equal(one, landscape.degrade_image(x, torch.Generator().manual_seed(5)))
+    assert not torch.equal(one, landscape.degrade_image(x, torch.Generator().manual_seed(6)))
+    with pytest.raises(ValueError, match="noise"):
+        landscape.degrade_image(x, noise=torch.zeros(3, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def _tpuimage_stages(name: str, noisy: bool):
+    """tpuimage's jitted stages of enhance_image: denoised, CLAHE, sharpened."""
+    x = IMAGES[name]()
+    p = jland.ENHANCEMENT_PRESET
+    den = np.asarray(jax.jit(jland.denoise_image, static_argnums=(1, 2, 3))(
+        x, p["denoising"]["method"], p["denoising"]["kernel_size"], noisy))
+    c = p["clahe"]
+    cl = np.asarray(jax.jit(jland.enhance_contrast_clahe, static_argnums=(1, 2, 3, 4))(
+        den, c["clip_limit"], c["tile_grid_size"], c["sky_protection_power"],
+        c["blend_strength"]))
+    amount = p["sharpening"]["amount"] * (0.7 if noisy else 1.0)
+    sh = np.asarray(jax.jit(jland.sharpen_image, static_argnums=(1, 2))(
+        cl, amount, p["sharpening"]["radius"]))
+    return x, den, cl, sh
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("name", sorted(IMAGES))
+def test_stages_on_tpuimage_previous_stage(name, noisy):
+    """Each stage of enhance_image on tpuimage's output of the stage before
+    it, so differences do not compound: bilateral within its contract,
+    CLAHE + sky blend + Lab -> RGB within the paths' tolerance (measured
+    max 2, > 1 on at most 0.022%, any on at most 0.49%), the sharpening
+    exact."""
+    x, den, cl, sh = _tpuimage_stages(name, noisy)
+    p = landscape.ENHANCEMENT_PRESET
+    _assert_within(landscape.denoise_image(_t(x), "bilateral", 5, noisy), den, 1, 0.005)
+    c = p["clahe"]
+    _assert_within(landscape.enhance_contrast_clahe(
+        _t(den), c["clip_limit"], c["tile_grid_size"], c["sky_protection_power"],
+        c["blend_strength"]), cl, *PATH_TOL)
+    amount = p["sharpening"]["amount"] * (0.7 if noisy else 1.0)
+    np.testing.assert_array_equal(landscape.sharpen_image(_t(cl), amount, 1.0).numpy(), sh)
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_median_denoise_exact(noisy):
+    x = IMAGES["scene37x53"]()
+    ref = jax.jit(jland.denoise_image, static_argnums=(1, 2, 3))(x, "median", 5, noisy)
+    np.testing.assert_array_equal(landscape.denoise_image(_t(x), "median", 5, noisy).numpy(),
+                                  np.asarray(ref))
+
+
+def test_clahe_default_sky_power_within_tolerance():
+    """enhance_contrast_clahe's defaults (clip 2.5, sky power 3: ``pow``
+    written as products by XLA, blend 0.6)."""
+    x = IMAGES["scene48x64"]()
+    _assert_within(landscape.enhance_contrast_clahe(_t(x)),
+                   jax.jit(jland.enhance_contrast_clahe)(x), *PATH_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the entry points against tpuimage's jitted ones
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("name", sorted(IMAGES))
+def test_enhance_image_matches_jitted(name, noisy):
+    x = IMAGES[name]()
+    _assert_within(landscape.enhance_image(x, is_noisy=noisy, device="cpu"),
+                   jland.enhance_image(x, is_noisy=noisy), *PATH_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(IMAGES))
+def test_landscape_gui_matches_jitted(name):
+    x = IMAGES[name]()
+    _assert_within(landscape.landscape_gui(x, device="cpu"), jland.landscape_gui(x), *PATH_TOL)
+
+
+def _assert_metrics_close(ours, ref):
+    for k in ("psnr_enhanced", "psnr_restored"):
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=1e-4)
+    for k in ("ssim_enhanced", "ssim_restored"):
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=0, atol=1e-3)
+
+
+def test_eval_step_matches_jitted():
+    x = IMAGES["scene48x64"]()
+    key = jax.random.PRNGKey(2)
+    ref = jland.landscape_eval_step(x, key)
+    ours = landscape.landscape_eval_step(x, noise=_t(_noise(key, x.shape)), device="cpu")
+    assert set(ours) == set(ref)
+    np.testing.assert_array_equal(ours["original"].numpy(), x)
+    np.testing.assert_array_equal(ours["degraded"].numpy(), np.asarray(ref["degraded"]))
+    for k in ("enhanced", "restored"):
+        _assert_within(ours[k], ref[k], *PATH_TOL)
+    _assert_metrics_close(ours, ref)
+    assert ours["psnr_enhanced"].shape == ()
+
+
+def test_eval_batch_matches_jitted_per_image():
+    """The batch form against tpuimage's vmapped one, and each image's
+    PSNR and SSIM equal to the single image's (never one over the batch)."""
+    b = np.stack([IMAGES["scene37x53"](), IMAGES["random37x53"]()])
+    keys = jax.random.split(jax.random.PRNGKey(7), 2)
+    noise = np.stack([_noise(k, b.shape[1:]) for k in keys])
+    ref = jland.landscape_eval_batch(b, keys)
+    ours = landscape.landscape_eval_batch(b, noise=_t(noise), device="cpu")
+    np.testing.assert_array_equal(ours["degraded"].numpy(), np.asarray(ref["degraded"]))
+    for k in ("enhanced", "restored"):
+        _assert_within(ours[k], ref[k], *PATH_TOL)
+    _assert_metrics_close(ours, ref)
+    for i in range(2):
+        one = landscape.landscape_eval_step(b[i], noise=_t(noise[i]), device="cpu")
+        for k in ("psnr_enhanced", "ssim_enhanced", "psnr_restored", "ssim_restored"):
+            assert ours[k].shape == (2,)
+            assert float(ours[k][i]) == float(one[k]), k
+    assert ours["psnr_enhanced"][0] != ours["psnr_enhanced"][1]
+
+
+@pytest.mark.parametrize("entry", ["enhance_image", "landscape_gui", "landscape_eval_step",
+                                   "degrade_image"])
+def test_landscape_runs_on_the_card_unless_asked(monkeypatch, entry):
+    """An array goes to the card by default, and with no card that raises;
+    device="cpu" and a CPU tensor run on the host."""
+    fn = getattr(landscape, entry)
+    x = synth.landscape_scene(9, 24, 40)
+    kw = {"generator": torch.Generator().manual_seed(1)} if entry in (
+        "landscape_eval_step", "degrade_image") else {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(x, **kw)
+    on_host = fn(x, device="cpu", **kw)
+    out = on_host["restored"] if isinstance(on_host, dict) else on_host
+    assert out.device.type == "cpu" and out.dtype == torch.uint8 and out.shape == x.shape
+    kw = {"generator": torch.Generator().manual_seed(1)} if kw else {}
+    again = fn(_t(x), **kw)
+    assert torch.equal(again["restored"] if isinstance(again, dict) else again, out)
+
+
+def test_landscape_scene():
+    """Seeded; a sky brighter than the ground in Lab L, so the sky
+    protection has bright pixels to protect."""
+    x = synth.landscape_scene(3, 120, 160)
+    np.testing.assert_array_equal(x, synth.landscape_scene(3, 120, 160))
+    assert x.shape == (120, 160, 3) and x.dtype == np.uint8
+    lum = color.rgb_to_lab(_t(x))[..., 0].float()
+    assert float(lum[:30].mean()) > 150 > 90 > float(lum[-30:].mean())

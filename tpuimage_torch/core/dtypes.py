@@ -34,3 +34,13 @@ def trunc_u8(x: torch.Tensor) -> torch.Tensor:
 def descale(x: torch.Tensor, n: int) -> torch.Tensor:
     """OpenCV CV_DESCALE(x, n) = (x + (1 << (n-1))) >> n on int32."""
     return (i32(x) + (1 << (n - 1))) >> n
+
+
+def fma_f32(x: torch.Tensor, y: torch.Tensor, z) -> torch.Tensor:
+    """f32 ``x * y + z`` rounded once, as the fused multiply-add that XLA's
+    compiler makes of a product feeding an add: the f64 product of two f32
+    values is exact, and one rounding of the f64 sum to f32 is the fused
+    result but for a double rounding at an f32 tie (an f64 sum exactly
+    halfway between two f32 values), which the callers' inputs do not meet
+    in their tests."""
+    return (x.double() * y.double() + z).to(torch.float32)

@@ -64,8 +64,10 @@ def tap_tables(d: int, sigma_color: float, sigma_space: float):
 def tables_on(d: int, sigma_color: float, sigma_space: float, channels: int, device):
     """(radius, taps, space weights, colour-weight table): the ``bilateral``
     kernel's arguments on ``device`` for 1 or 3 channels, made once per
-    (parameters, channels, device); the colour table is built on that
-    device by ``kernels.color_weight_table``."""
+    (parameters, channels, device). The colour table is built on the host
+    by ``kernels.color_weight_table`` and copied: the card's ``exp`` rounds
+    a few weights otherwise, and a result on the card would then differ
+    from the host's."""
     return _tables_on(int(d), float(sigma_color), float(sigma_space), int(channels),
                       str(torch.device(device)))
 
@@ -74,7 +76,7 @@ def tables_on(d: int, sigma_color: float, sigma_space: float, channels: int, dev
 def _tables_on(d: int, sigma_color: float, sigma_space: float, channels: int, device: str):
     radius, offsets, space_w, gc = tap_tables(d, sigma_color, sigma_space)
     return (radius, torch.from_numpy(offsets).to(device), torch.from_numpy(space_w).to(device),
-            kernels.color_weight_table(255 * channels + 1, gc, device))
+            kernels.color_weight_table(255 * channels + 1, gc, "cpu").to(device))
 
 
 def bilateral_filter(img: torch.Tensor, d: int, sigma_color: float,

@@ -1,6 +1,7 @@
 """Colour conversions bit-matching OpenCV's 8-bit paths (counterpart of
 ``tpuimage.ops.color``): RGB -> gray, RGB -> Lab (fixed point, the
-``rgb_to_lab`` kernel on the card) and Lab -> RGB (float)."""
+``rgb_to_lab`` kernel on the card), Lab -> RGB (float) and RGB <-> HSV
+(8-bit, H in [0, 180))."""
 from __future__ import annotations
 
 import functools
@@ -8,7 +9,7 @@ import functools
 import numpy as np
 import torch
 
-from tpuimage_torch.core.dtypes import descale, f32, i32, saturate_u8
+from tpuimage_torch.core.dtypes import descale, f32, fma_f32, i32, saturate_u8
 from tpuimage_torch.ops import kernels
 
 # Y = descale(R*9798 + G*19235 + B*3735, 15), Q15 fixed point
@@ -105,3 +106,66 @@ def lab_to_rgb(img: torch.Tensor) -> torch.Tensor:
     srgb = torch.where(rgb_lin <= 0.0031308, rgb_lin * 12.92,
                        1.055 * rgb_lin ** (1.0 / 2.4) - 0.055)
     return saturate_u8(srgb * 255.0)
+
+
+# ---------------------------------------------------------------------------
+# HSV (8-bit, H in [0, 180)): the integer table algorithm of color_hsv.simd
+# one way, OpenCV's float sector algorithm the other
+# ---------------------------------------------------------------------------
+_HSV_SHIFT = 12
+
+
+def hsv_tables():
+    """(sdiv, hdiv) int32 (256,): round((255 << 12) / i) and
+    round((180 << 12) / (6 i)), 0 at i = 0, as tpuimage's ``_hsv_tables``."""
+    i = np.arange(256, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        sdiv = np.where(i > 0, np.rint((255 << _HSV_SHIFT) / i), 0.0)
+        hdiv = np.where(i > 0, np.rint((180 << _HSV_SHIFT) / (6.0 * i)), 0.0)
+    return sdiv.astype(np.int32), hdiv.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _hsv_tables_on(device: str):
+    return tuple(torch.from_numpy(t).to(device) for t in hsv_tables())
+
+
+def rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (..., 3) uint8 HSV, exact integer arithmetic
+    (the tables as plain gathers)."""
+    sdiv, hdiv = _hsv_tables_on(str(img.device))
+    r, g, b = i32(img[..., 0]), i32(img[..., 1]), i32(img[..., 2])
+    v = torch.maximum(torch.maximum(r, g), b)
+    diff = v - torch.minimum(torch.minimum(r, g), b)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * sdiv[v.to(torch.int64)] + half) >> _HSV_SHIFT
+    h_raw = torch.where(v == r, g - b, torch.where(v == g, (b - r) + 2 * diff,
+                                                   (r - g) + 4 * diff))
+    h = (h_raw * hdiv[diff.to(torch.int64)] + half) >> _HSV_SHIFT
+    h = torch.where(h < 0, h + 180, h)
+    return torch.stack([h, s, v], dim=-1).to(torch.uint8)
+
+
+def hsv_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 HSV -> (..., 3) uint8 RGB: OpenCV's float sector
+    algorithm with the 8-bit rescale truncated, as tpuimage's jitted
+    programs compute it (``1 - s * f`` fused into one multiply-add)."""
+    h = f32(img[..., 0]) * (6.0 / 180.0)
+    s = f32(img[..., 1]) * (1.0 / 255.0)
+    v = f32(img[..., 2]) * (1.0 / 255.0)
+    sector = torch.floor(h)
+    hfrac = h - sector
+    sector = sector.to(torch.int32) % 6
+    tabs = [v, v * (1.0 - s), v * fma_f32(-s, hfrac, 1.0),
+            v * fma_f32(-s, 1.0 - hfrac, 1.0)]
+
+    def pick(idx_per_sector):
+        out = tabs[idx_per_sector[0]]
+        for k in range(1, 6):
+            out = torch.where(sector == k, tabs[idx_per_sector[k]], out)
+        return out
+
+    # OpenCV's sector_data, emitted as r, g, b
+    rgb = torch.stack([pick([0, 2, 1, 1, 3, 0]), pick([3, 0, 0, 2, 1, 1]),
+                       pick([1, 1, 3, 0, 0, 2])], dim=-1)
+    return torch.clamp(torch.floor(rgb * 255.0), 0, 255).to(torch.uint8)

@@ -85,9 +85,12 @@ def _sepconv_valid_f32(padded: torch.Tensor, kx, ky) -> torch.Tensor:
 
 
 def gaussian_blur_u8(img: torch.Tensor, ksize: int = 0, sigma: float = 0.0,
-                     border: str = BORDER_REFLECT_101) -> torch.Tensor:
-    """cv2.GaussianBlur on each uint8 (H, W) plane, bit-exact (Q8.8 taps,
-    Q16.16 accumulator, round half up). ksize == 0 derives it from sigma.
+                     border: str = BORDER_REFLECT_101,
+                     channels_last: bool = False) -> torch.Tensor:
+    """cv2.GaussianBlur on each uint8 (H, W) plane of a (..., H, W) tensor,
+    or, with ``channels_last``, on each channel of a (..., H, W, C) tensor
+    (tpuimage's blur of an (H, W, C) image); bit-exact (Q8.8 taps, Q16.16
+    accumulator, round half up). ksize == 0 derives it from sigma.
 
     On a CUDA uint8 tensor with the reflect-101 border this is the
     ``gaussian_blur_u8`` kernel (``ops.kernels``); elsewhere the plain
@@ -98,6 +101,9 @@ def gaussian_blur_u8(img: torch.Tensor, ksize: int = 0, sigma: float = 0.0,
         ksize = gaussian_ksize_from_sigma(sigma)
     if ksize == 1:
         return img
+    if channels_last:
+        planes = gaussian_blur_u8(img.movedim(-1, -3).contiguous(), ksize, sigma, border)
+        return planes.movedim(-3, -1).contiguous()
     if img.is_cuda and img.dtype == torch.uint8 and border == BORDER_REFLECT_101:
         from tpuimage_torch.ops import kernels   # kernels imports this module
         planes = img.reshape((-1,) + tuple(img.shape[-2:])).contiguous()
@@ -130,6 +136,21 @@ def gaussian_blur_f32(img: torch.Tensor, ksize: int = 0, sigma: float = 0.0,
     r = ksize // 2
     p = pad2d(f32(img), r, r, r, r, mode=border)
     return _sepconv_valid_f32(p, k, k)
+
+
+def box_sums_valid(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Sums over every k x k window inside each (H, W) plane of a (..., H,
+    W) float tensor ('valid': (..., H - k + 1, W - k + 1)), the rows first,
+    added one shifted view at a time: exact for integer values whose sums
+    stay below 2**24 (in f32: the squares and products of bytes over 7x7)."""
+    h, w = x.shape[-2] - k + 1, x.shape[-1] - k + 1
+    s = x[..., 0:h, :]
+    for i in range(1, k):
+        s = s + x[..., i:i + h, :]
+    out = s[..., 0:w]
+    for i in range(1, k):
+        out = out + s[..., i:i + w]
+    return out
 
 
 def _window_sums(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Seeded numpy generators of test images (no PIL, no cv2, no torch):
-document photos and pages for DocScanner and morph_seq, and night scenes
-for the night pipelines.
+document photos and pages for DocScanner and morph_seq, night scenes for
+the night pipelines and daylight landscapes for the landscape pipeline.
 
 ``document_photo`` draws a textured dark background and, optionally, a
 bright page quad under mild perspective carrying rows of dark text
@@ -187,6 +187,41 @@ def night_scene(seed: int, height: int = 853, width: int = 1280) -> np.ndarray:
         glow = 255.0 * np.exp(-d2 / (2 * core ** 2)) + 60.0 * np.exp(-d2 / (2 * (4 * core) ** 2))
         rgb[y0:y1, x0:x1] += glow[..., None] * np.array([1.0, 0.78, 0.45])
     rgb += rng.normal(0.0, 3.0, size=rgb.shape)
+    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+def landscape_scene(seed: int, height: int = 853, width: int = 1280) -> np.ndarray:
+    """A (height, width, 3) uint8 daylight landscape: a bright blue sky
+    brightening toward a hilly horizon (Lab L ~170-240, where the sky
+    protection keeps most of the original), with a few soft clouds, over
+    darker green-brown ground with grass texture and rocks in the
+    foreground, and sensor noise."""
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:height, 0:width].astype(np.float64)
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    xn = u[0] / width
+    horizon = height * (0.45 + 0.06 * np.sin(2 * np.pi * 1.1 * xn + phase[0])
+                        + 0.03 * np.sin(2 * np.pi * 2.9 * xn + phase[1])
+                        + 0.012 * np.sin(2 * np.pi * 8.3 * xn + phase[2]))
+    t = np.clip(v / horizon[None, :], 0.0, 1.0)[..., None]
+    sky = np.array([90.0, 150.0, 235.0]) * (1 - t) + np.array([200.0, 220.0, 240.0]) * t
+    for _ in range(int(rng.integers(3, 7))):
+        cy, cx = rng.uniform(0.05, 0.35) * height, rng.uniform(0.0, 1.0) * width
+        ry, rx = rng.uniform(0.03, 0.07) * height, rng.uniform(0.08, 0.2) * width
+        cloud = np.exp(-(((v - cy) / ry) ** 2 + ((u - cx) / rx) ** 2))
+        sky = sky + cloud[..., None] * (np.array([250.0, 250.0, 252.0]) - sky) * 0.8
+    depth = np.clip((v - horizon[None, :]) / (height - horizon[None, :] + 1.0), 0.0, 1.0)
+    texture = (_background(rng, height, width) - 55.0) / 20.0       # about -1 .. 1
+    grass = rng.normal(0.0, 1.0, (height, width)) * (0.3 + 0.7 * depth)
+    shade = 0.55 + 0.25 * texture + 0.12 * grass
+    ground = np.array([70.0, 105.0, 45.0]) * (1 - depth[..., None] * 0.3) * shade[..., None]
+    for _ in range(int(rng.integers(4, 9))):
+        cy, cx = rng.uniform(0.7, 1.0) * height, rng.uniform(0.0, 1.0) * width
+        r = rng.uniform(0.02, 0.06) * width
+        rock = np.exp(-((v - cy) ** 2 + (u - cx) ** 2) / (2 * r * r))
+        ground = ground + rock[..., None] * (np.array([120.0, 110.0, 100.0]) - ground) * 0.9
+    rgb = np.where((v < horizon[None, :])[..., None], sky, ground)
+    rgb += rng.normal(0.0, 2.0, size=rgb.shape)
     return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
 
 

@@ -1,8 +1,8 @@
 """Time several builds of one kernel source against each other.
 
     python -m tpuimage_torch.tools.time_kernel_builds
-        {bilateral,blackhat_rect,clahe_apply,gauss_sep,hist256,inkmask,morph3,
-         rank_extract}
+        {bilateral,blackhat_rect,clahe_apply,gauss_sep,hist256,inkmask,lab,
+         morph3,rank_extract}
         [--source OTHER.cu ...] [--timed-only OTHER.cu ...]
         [--ksize 83 255] [--mode none sub adaptive] [--iters 1 8]
 
@@ -32,7 +32,10 @@ the paths' shapes:
   wide) and their Otsu thresholds, gray_erode3 on the 8 RGB photos;
 - clahe_apply: the L planes of 8 median-filtered night scenes of 1280x853
   with the night path's 8x8 tile LUTs (clip limit 2) and blend matrices,
-  as chip_smoke.py phase 7 makes them.
+  as chip_smoke.py phase 7 makes them;
+- lab: rgb_to_lab on those 8 median-filtered night scenes (the night
+  path's and landscape's shape), with the packed tables of
+  ``color.lab_tables_on``.
 
 The tree's build and every ``--source`` are held exact against the plain
 version (one that differs is named, left untimed, and the tool exits 1); a
@@ -42,7 +45,7 @@ power limit and one line per case: each build's ms for one call, the
 median of 10 samples of 20 back-to-back eager calls, and in parentheses
 its device time, the median of 5 replays of a CUDA graph of 20 calls;
 both taken in turns (a, b, .., b, a), the lower of the two kept. For
-inkmask, morph3 and clahe_apply a third time follows in brackets: the same graph with
+inkmask, morph3, clahe_apply and lab a third time follows in brackets: the same graph with
 its calls rotated over copies of the inputs and outputs that total more
 than the H100's 50 MB L2, so that each call reads device memory. A hist256
 or rank_extract call zeroes its output first in every build (the first
@@ -68,7 +71,7 @@ from tpuimage_torch.pipelines import docscan, night
 N = 8
 PAGE, NIGHT, MORPH, PHOTO = (1200, 849), (853, 1280), (963, 1280), (1600, 1200)
 KERNELS = ("bilateral", "blackhat_rect", "clahe_apply", "gauss_sep", "hist256", "inkmask",
-           "morph3", "rank_extract")
+           "lab", "morph3", "rank_extract")
 L2_BYTES = 50 << 20
 _p = ctypes.c_void_p
 
@@ -336,13 +339,17 @@ def _morph3_cases(args, dev, stream):
         yield label, out, torch.stack(want), Rotated(make, x.numel() + out.numel())
 
 
+def _night_filtered(dev) -> torch.Tensor:
+    """The 8 median-filtered night scenes (the night path's rgb_to_lab input)."""
+    scenes = torch.from_numpy(np.stack([synth.night_scene(400 + i, *NIGHT)
+                                        for i in range(N)])).to(dev)
+    return median.median_blur(scenes, 3, channels_last=True).contiguous()
+
+
 def _night_lum(dev) -> torch.Tensor:
     """The L planes of the 8 median-filtered night scenes (the night path's
     CLAHE input)."""
-    scenes = torch.from_numpy(np.stack([synth.night_scene(400 + i, *NIGHT)
-                                        for i in range(N)])).to(dev)
-    filtered = median.median_blur(scenes, 3, channels_last=True).contiguous()
-    return kernels.rgb_to_lab(filtered, color.lab_tables_on(dev))[..., 0].contiguous()
+    return kernels.rgb_to_lab(_night_filtered(dev), color.lab_tables_on(dev))[..., 0].contiguous()
 
 
 def _clahe_cases(args, dev, stream):
@@ -369,9 +376,29 @@ def _clahe_cases(args, dev, stream):
            Rotated(make, lum.numel() + luts.numel() + out.numel()))
 
 
+def _lab_cases(args, dev, stream):
+    rgb = _night_filtered(dev)
+    tables = color.lab_tables_on(dev)
+    out = torch.empty_like(rgb)
+    data = {}
+
+    def make(lib, i):
+        if i not in data:
+            data[i] = (rgb, out) if i == 0 else (rgb.clone(), torch.empty_like(out))
+        lib.tpuimage_rgb_to_lab.argtypes = [_p, _p, _p, ctypes.c_longlong, _p]
+        x, o = data[i]
+        return lambda: _raise_on(lib.tpuimage_rgb_to_lab(
+            _p(x.data_ptr()), _p(o.data_ptr()), _p(tables.data_ptr()), x.numel() // 3, stream),
+            "tpuimage_rgb_to_lab")
+
+    yield (f"8 median-filtered night scenes {NIGHT[1]}x{NIGHT[0]}", out,
+           kernels.rgb_to_lab_ref(rgb, tables), Rotated(make, rgb.numel() + out.numel()))
+
+
 _CASES = {"bilateral": _bilateral_cases, "blackhat_rect": _blackhat_cases,
-          "clahe_apply": _clahe_cases, "gauss_sep": _gauss_cases, "hist256": _hist_cases, "inkmask": _ink_cases,
-          "morph3": _morph3_cases, "rank_extract": _rank_cases}
+          "clahe_apply": _clahe_cases, "gauss_sep": _gauss_cases, "hist256": _hist_cases,
+          "inkmask": _ink_cases, "lab": _lab_cases, "morph3": _morph3_cases,
+          "rank_extract": _rank_cases}
 
 
 def main(argv=None) -> int:
