@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive tpuimage_torch's paths once on one CUDA card: DocScanner's
 serving paths (scan_batch, scan_stream) and its one-document path
-(process_document), the night paths (gray and RGB), morph_seq and
-landscape (the GUI route and the degrade / restore evaluation).
+(process_document), the night paths (gray and RGB), morph_seq,
+landscape (the GUI route and the degrade / restore evaluation) and face
+(both tails of enhance_face).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -96,7 +97,19 @@ Phases (any failure raises and the exit code is non-zero):
    read just after, MP/s, a profiled window and the peak device memory;
    card against host on 2 images; ``median_blur`` at ksize 5 and 7 and
    ``nlm_denoise_colored`` on one scene, timed once (not on the preset's
-   path).
+   path);
+11. face on 4 synthetic portraits of 853x1280 (``synth.portrait``, with
+   their eye boxes): the kernels at its shapes first, exact against their
+   plain versions and timed (bilateral d 5, 20/20 on the portraits;
+   gaussian_blur_u8 k 5 and 9 on each channel, k 21 on the skin masks,
+   sigma 3 on L; rgb_to_lab, hist256 and clahe_apply on 8 eye regions of
+   31-61 px at 4x4 tiles, one launch each); then ``enhance_face`` for
+   (gaussian, script), (gaussian, gui) and (impulse, script), the noise
+   classified and the eyes given, each with the counters reset just
+   before and read just after, ms a portrait, MP/s, a profiled window and
+   the peak device memory; the legacy NLM branch on one portrait and the
+   Haar eye detector (native, on the host) timed once; card against host
+   on 2 portraits of each combination.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record (all twelve kernels, each launched on
@@ -195,6 +208,9 @@ MASK_EDGE_THRESHOLDS = (-1.0, -0.5, 0.0, 117.5, 254.0, 255.0, 300.0, float("nan"
 MASK_EDGE_ITERS = (0, 1, 8, 9)
 LANDSCAPE_SHARPEN_KSIZE = 7    # GaussianBlur((0, 0), sigma 1) on bytes
 PATH_STATS_TOL = (1e-4, 1e-3)  # card vs host: PSNR relative, SSIM absolute
+FACE = (1280, 853)             # a portrait photo, height x width
+N_FACE = 4
+FACE_COMBOS = (("gaussian", "script"), ("gaussian", "gui"), ("impulse", "script"))
 
 
 def _nvidia_smi() -> str:
@@ -394,6 +410,41 @@ def _compare(name, kernel_fn, plain_fn, bound: dict, library_fns=(),
     return rec
 
 
+def _face_clahe_kernels(what: str, planes, clip: float, grid: int, key: str,
+                        records: dict) -> None:
+    """hist256 and clahe_apply on each (1, H, W) L plane at ``grid`` x
+    ``grid`` tiles, as ``histogram.clahe`` calls them: each kernel exact
+    against its plain version and timed, one launch a plane; then the whole
+    CLAHE on the card equal to the host's."""
+    from tpuimage_torch.ops import histogram, kernels
+    tiles = [histogram.clahe_tiles(p, grid, grid) for p in planes]
+    rec = _compare(
+        f"hist256 {what}",
+        lambda: tuple(kernels.hist256_batch(t) for t, _, _ in tiles),
+        lambda: tuple(kernels.hist256_batch_ref(t) for t, _, _ in tiles),
+        _bound(sum(t.numel() + t.shape[0] * 1024 for t, _, _ in tiles),
+               sum(t.numel() for t, _, _ in tiles)))
+    _sub_record(records["hist256"], key, rec)
+    args = []
+    for p, (t, th, tw) in zip(planes, tiles):
+        luts = histogram.tile_luts_from_counts(kernels.hist256_batch(t), clip, th * tw)
+        r, c = histogram.blend_matrices_on(p.shape[1], p.shape[2], th, tw, grid, grid,
+                                           p.device)
+        args.append((p, luts.reshape(1, grid, grid, 256), r, c))
+    n = sum(a[0].numel() for a in args)
+    rec = _compare(
+        f"clahe_apply {what}",
+        lambda: tuple(kernels.clahe_apply(*a) for a in args),
+        lambda: tuple(kernels.clahe_apply_ref(*a) for a in args),
+        _bound(sum(2 * a[0].numel() + a[1].numel() + 4 * (a[2].numel() + a[3].numel())
+                   for a in args), 9 * n))
+    _sub_record(records["clahe_apply"], key, rec)
+    for p in planes:
+        if not torch.equal(histogram.clahe(p, clip, grid, grid).cpu(),
+                           histogram.clahe(p.cpu(), clip, grid, grid)):
+            raise AssertionError(f"CLAHE {what} {tuple(p.shape)}: card and host differ")
+
+
 def _beside_direct_design(what: str, rec: dict) -> None:
     """Print a redesigned kernel's time beside its direct design's range
     at the same shape, and the share of the bound it reaches."""
@@ -582,7 +633,8 @@ def main() -> int:
                                     kernels, median, nlm)
     from tpuimage_torch.ops.color import rgb_to_gray
     from tpuimage_torch.ops.filters import gaussian_kernel_q8
-    from tpuimage_torch.pipelines import docscan, landscape, morphseq, night
+    from tpuimage_torch.detect import haar
+    from tpuimage_torch.pipelines import docscan, face, landscape, morphseq, night
 
     dev = torch.device("cuda")
     cfg = docscan.GUI_DOCUMENT_CONFIG
@@ -901,17 +953,17 @@ def main() -> int:
     records["bilateral"] = bil["preprocess"]
     for what in ("phone_12mp", "color"):
         _sub_record(records["bilateral"], what, bil[what])
-    face = scenes_c[:2].contiguous()
+    face_pair = scenes_c[:2].contiguous()
     radius, taps, space_w, lut = bilateral.tables_on(-1, 30.0, 10.0, 3, dev)
     bil["face_r15"] = _compare(
         f"bilateral face d=-1 30/10 (2 colour images {NIGHT[1]}x{NIGHT[0]}, radius {radius}, "
         f"{taps.shape[0]} taps)",
-        lambda: kernels.bilateral(face, taps, space_w, lut, radius),
-        lambda: kernels.bilateral_ref(face, taps, space_w, lut, radius),
-        _bilateral_bound(face, taps.shape[0]), plain_calls=1)
+        lambda: kernels.bilateral(face_pair, taps, space_w, lut, radius),
+        lambda: kernels.bilateral_ref(face_pair, taps, space_w, lut, radius),
+        _bilateral_bound(face_pair, taps.shape[0]), plain_calls=1)
     _beside_direct_design("bilateral face_r15", bil["face_r15"])
     _sub_record(records["bilateral"], "face_r15", bil["face_r15"])
-    del gray_photos, phone, scenes_c, face
+    del gray_photos, phone, scenes_c, face_pair
 
     # --- 3. the main path ----------------------------------------------------
     print(f"[phase 3 at {time.perf_counter() - t_start:.1f} s]")
@@ -1379,6 +1431,197 @@ def main() -> int:
     print(f"nlm_denoise_colored h 10 on 1 landscape scene {NIGHT[1]}x{NIGHT[0]} (search 21, "
           f"template 7): {ms:.1f} ms (one warm call)")
     del land_d, one, noise_d
+
+    # --- 11. face ------------------------------------------------------------
+    print(f"[phase 11 at {time.perf_counter() - t_start:.1f} s]")
+    shots = {n: [synth.portrait(800 + 10 * j + i, *FACE, noise=n) for i in range(N_FACE)]
+             for j, n in enumerate(synth.PORTRAIT_NOISE)}
+    gauss_d = torch.from_numpy(np.stack([p[0] for p in shots["gaussian"]])).to(dev)
+    n_face = N_FACE * FACE[0] * FACE[1]
+    # the five kernels at face's shapes: the polish bilateral (d 5, 20/20)
+    radius, btaps, space_w, lut = bilateral.tables_on(5, 20.0, 20.0, 3, dev)
+    rec = _compare(
+        f"bilateral face polish d=5 20/20 ({N_FACE} colour portraits {FACE[1]}x{FACE[0]}, "
+        f"{btaps.shape[0]} taps)",
+        lambda: kernels.bilateral(gauss_d, btaps, space_w, lut, radius),
+        lambda: kernels.bilateral_ref(gauss_d, btaps, space_w, lut, radius),
+        _bilateral_bound(gauss_d, btaps.shape[0]), plain_calls=2)
+    _sub_record(records["bilateral"], "face_d5", rec)
+    # the Gaussians: k 5 and 9 on each channel, k 21 on the skin masks, sigma 3 on L
+    rgb_planes = gauss_d.movedim(-1, -3).reshape(-1, *FACE).contiguous()
+    masks = face.get_refined_skin_mask(gauss_d)
+    lum = color.rgb_to_lab(gauss_d)[..., 0].contiguous()
+    torch.backends.cudnn.allow_tf32 = False
+    for what, planes, k, sigma in (("k5_rgb", rgb_planes, 5, 0.0), ("k9_rgb", rgb_planes, 9, 0.0),
+                                   ("k21_mask", masks, 21, 0.0), ("sigma3_l", lum, 19, 3.0)):
+        n_p = planes.numel()
+        padded = pad2d(planes.to(torch.float32), k // 2, k // 2, k // 2, k // 2)[:, None]
+        taps = torch.from_numpy(gaussian_kernel_q8(k, sigma).astype(np.float32)).to(dev)
+        rec = _compare(
+            f"gaussian_blur_u8 face {what} k={k} ({planes.shape[0]} planes {FACE[1]}x{FACE[0]}; "
+            "library: two cudnn conv2d 1-D passes + rounding)",
+            lambda: kernels.gaussian_blur_u8(planes, k, sigma),
+            lambda: kernels.gaussian_blur_u8_ref(planes, k, sigma),
+            _bound(2 * n_p + 4 * k, 2 * 2 * k * n_p, INT8_TENSOR_OPS_PER_S),
+            [lambda: _conv_blur_u8(padded, taps)])
+        _sub_record(records["gaussian_blur_u8"], f"face_{what}", rec)
+        del padded
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    del rgb_planes, masks, lum
+    # one portrait through the path's full-size kernels, on the inputs the path gives
+    # them: the glamour bilateral (radius 15) on the denoised portrait, rgb_to_lab and
+    # the 8x8 CLAHE (clip 0.5) on the input of the tone stage
+    pre = face.face_pre_eyes(gauss_d[0], "gaussian")
+    combined = pre["denoised_combined"][None].contiguous()
+    radius, btaps, space_w, lut = bilateral.tables_on(
+        -1, face.BILATERAL_SIGMA_COLOR, face.BILATERAL_SIGMA_SPACE, 3, dev)
+    rec = _compare(
+        f"bilateral face glamour d=-1 30/10 (1 colour portrait {FACE[1]}x{FACE[0]}, "
+        f"{btaps.shape[0]} taps)",
+        lambda: kernels.bilateral(combined, btaps, space_w, lut, radius),
+        lambda: kernels.bilateral_ref(combined, btaps, space_w, lut, radius),
+        _bilateral_bound(combined, btaps.shape[0]), plain_calls=1)
+    _sub_record(records["bilateral"], "face_portrait_r15", rec)
+    popped = face.pixel_pop_eyes(pre["skin_enhanced"], shots["gaussian"][0][1])
+    toned = face.apply_warmth(face.adjust_saturation(popped, face.COLOR_SATURATION),
+                              15.0).contiguous()
+    n_p = toned.numel() // 3
+    rec = _compare(
+        f"rgb_to_lab face portrait (1 portrait {FACE[1]}x{FACE[0]}, the tone stage's input)",
+        lambda: kernels.rgb_to_lab(toned, tables),
+        lambda: kernels.rgb_to_lab_ref(toned, tables),
+        _bound(6 * n_p + 4 * tables.numel(), 47 * n_p))
+    _sub_record(records["rgb_to_lab"], "face_portrait", rec)
+    _face_clahe_kernels(f"face portrait (1 L plane {FACE[1]}x{FACE[0]}, 8x8 tiles, clip 0.5)",
+                        [kernels.rgb_to_lab(toned, tables)[..., 0].contiguous()[None]],
+                        0.5, 8, "face_portrait", records)
+    del pre, combined, popped, toned
+    # the eye pop's kernels on the eye regions enhance_face runs (both boxes of each
+    # portrait, cut from the image the eye pop is handed) and on synth.EYE_EDGE_SHAPES
+    # (odd widths, heights no multiple of 4) around them, 4x4 tiles
+    skins = [face.face_pre_eyes(gauss_d[i], "gaussian")["skin_enhanced"] for i in range(N_FACE)]
+    regions = [skins[i][y:y + h, x:x + w] for i in range(N_FACE)
+               for (x, y, w, h) in shots["gaussian"][i][1]]
+    for i, (h, w) in enumerate(synth.EYE_EDGE_SHAPES):
+        ex, ey, ew, eh = shots["gaussian"][i % N_FACE][1][i % 2]
+        y0, x0 = ey + eh // 2 - h // 2, ex + ew // 2 - w // 2
+        regions.append(skins[i % N_FACE][y0:y0 + h, x0:x0 + w])
+    shapes = sorted({tuple(r.shape[:2]) for r in regions})
+    if shapes != sorted(synth.eye_region_shapes(*FACE)):
+        raise AssertionError(f"eye regions {shapes}: not those of synth.eye_region_shapes")
+    eye_rois = [median.median_blur(r, 3, channels_last=True).contiguous() for r in regions]
+    n_eye = sum(r.numel() // 3 for r in eye_rois)
+    rec = _compare(
+        f"rgb_to_lab face eyes ({len(eye_rois)} eye regions {shapes}, one launch each)",
+        lambda: tuple(kernels.rgb_to_lab(r, tables) for r in eye_rois),
+        lambda: tuple(kernels.rgb_to_lab_ref(r, tables) for r in eye_rois),
+        _bound(6 * n_eye + 4 * tables.numel() * len(eye_rois), 47 * n_eye))
+    _sub_record(records["rgb_to_lab"], "face_eyes", rec)
+    eye_l = [kernels.rgb_to_lab(r, tables)[..., 0].contiguous()[None] for r in eye_rois]
+    _face_clahe_kernels(f"face eyes ({len(eye_rois)} eye regions, 4x4 tiles, clip 0.2)",
+                        eye_l, 0.2, 4, "face_eyes", records)
+    # the eye pop's Gaussians: k 31 on each region's ellipse, sigma 3 (k 19) on the L
+    # of its CLAHE'd region (enhance_details)
+    ellipses = [face.eye_ellipse(h, w, str(dev))[None] for h, w in shapes]
+    details_l = []
+    for r, lum_ in zip(eye_rois, eye_l):
+        lab = color.rgb_to_lab(r)
+        enh = color.lab_to_rgb(torch.cat([histogram.clahe(lum_[0], 0.2, 4, 4)[..., None],
+                                          lab[..., 1:]], dim=-1))
+        details_l.append(color.rgb_to_lab(enh)[..., 0].contiguous()[None])
+    for what, planes, k, sigma in (("k31_eye_ellipses", ellipses, 31, 0.0),
+                                   ("sigma3_eye_l", details_l, 19, 3.0)):
+        n_p = sum(p_.numel() for p_ in planes)
+        rec = _compare(
+            f"gaussian_blur_u8 face {what} k={k} ({len(planes)} planes {shapes}, one launch "
+            "each)",
+            lambda: tuple(kernels.gaussian_blur_u8(p_, k, sigma) for p_ in planes),
+            lambda: tuple(kernels.gaussian_blur_u8_ref(p_, k, sigma) for p_ in planes),
+            _bound(2 * n_p + 4 * k * len(planes), 2 * 2 * k * n_p, INT8_TENSOR_OPS_PER_S))
+        _sub_record(records["gaussian_blur_u8"], f"face_{what}", rec)
+    del skins, regions, eye_rois, eye_l, ellipses, details_l
+
+    # enhance_face, three (noise, variant) combinations, 4 portraits each, eyes from the synth
+    needed = ("bilateral", "gaussian_blur_u8", "rgb_to_lab", "hist256", "clahe_apply")
+    face_card = {}
+    for noise, variant in FACE_COMBOS:
+        name = f"enhance_face {noise} {variant}"
+        arrays = [p[0] for p in shots[noise]]
+        eyes = [p[1] for p in shots[noise]]
+        on_card = [torch.from_numpy(a).to(dev) for a in arrays]
+
+        def run(xs, variant=variant, eyes=eyes):
+            return [face.enhance_face(x, eyes=e, variant=variant) for x, e in zip(xs, eyes)]
+
+        run(arrays)                                            # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs = run(arrays)                                     # arrays: on the card by default
+        torch.cuda.synchronize()
+        for k_, v in _launched(name, kernels.launch_counts(), needed).items():
+            launches[k_] += v
+        for x, out in zip(arrays, outs):
+            if out["noise_type"] != noise:
+                raise AssertionError(f"{name}: classified {out['noise_type']}")
+            for k_ in ("skin_mask", "skin_enhanced", "features_popped", "final"):
+                v = out[k_]
+                want = FACE if k_ == "skin_mask" else (*FACE, 3)
+                if v.device.type != "cuda" or v.dtype != torch.uint8 or tuple(v.shape) != want:
+                    raise AssertionError(f"{name} {k_}: {v.device} {v.dtype} {tuple(v.shape)}")
+            if not bool((out["final"] != torch.from_numpy(x).to(dev)).any()):
+                raise AssertionError(f"{name}: the portrait came back unchanged")
+            skin = float((out["skin_mask"] > 128).float().mean())
+            if not 0.1 < skin < 0.6:
+                raise AssertionError(f"{name}: skin mask covers {skin:.3f} of the portrait")
+        face_card[(noise, variant)] = [{k_: v.cpu() for k_, v in o.items()
+                                        if isinstance(v, torch.Tensor)} for o in outs[:2]]
+        del outs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2 ** 20
+        ms = _cuda_ms(lambda: run(on_card), reps=3, calls=1)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"{name}: {ms / N_FACE:.3f} ms per portrait {FACE[1]}x{FACE[0]} = "
+              f"{n_face / 1e3 / ms:.1f} MP/s ({N_FACE} portraits, noise classified, eyes given; "
+              f"CUDA events, warm, median of 3 runs, input on the card); device memory: peak "
+              f"{peak_mb - base_mb:.1f} MiB above the {base_mb:.1f} MiB held before the calls")
+        _print_profile(name, ms, lambda: run(on_card))
+        del on_card
+    # the legacy NLM branch (any other noise_type), once on one portrait
+    one, one_eyes = torch.from_numpy(shots["gaussian"][0][0]).to(dev), shots["gaussian"][0][1]
+    ms = _cuda_ms(lambda: face.enhance_face(one, "legacy", one_eyes), reps=1, calls=1)
+    print(f"enhance_face legacy (NLM h 10 and 30) on 1 portrait {FACE[1]}x{FACE[0]}: "
+          f"{ms:.1f} ms (one warm call)")
+    # the Haar eye detector on the host: what eyes=None adds to a call
+    from tpuimage_torch.native import load_native
+    if load_native() is None:
+        raise AssertionError("the host library (contours.cpp, haar.cpp) did not build")
+    grays = [rgb_to_gray(gauss_d[i]).cpu().numpy() for i in range(N_FACE)]
+    t0 = time.perf_counter()
+    found = haar.detect_multi_scale_batch(grays, "haarcascade_eye.xml", 1.1, 5, (30, 30),
+                                          impl="native")
+    host_ms = (time.perf_counter() - t0) * 1e3 / N_FACE
+    if found != [haar.detect_eyes(g) for g in grays] or not all(found):
+        raise AssertionError(f"detect_eyes: {found}")
+    print(f"detect_eyes (native, on the host) on {N_FACE} portraits {FACE[1]}x{FACE[0]}: "
+          f"{host_ms:.1f} ms per portrait; eyes found {[len(f) for f in found]} "
+          f"(synth boxes {[p[1] for p in shots['gaussian']]}; found {found})")
+    # card against host, two portraits of each combination
+    for noise, variant in FACE_COMBOS:
+        for i in range(2):
+            img, eyes = shots[noise][i]
+            host = face.enhance_face(img, eyes=eyes, variant=variant, device="cpu")
+            for k_, c in face_card[(noise, variant)][i].items():
+                diff = (c.to(torch.int32) - host[k_].to(torch.int32)).abs()
+                n_diff = int((diff > 0).sum())
+                max_levels, max_share = NIGHT_RGB_TOL
+                if int(diff.max()) > max_levels or n_diff >= max_share * diff.numel():
+                    raise AssertionError(f"enhance_face {noise} {variant} {k_}: {n_diff} of "
+                                         f"{diff.numel()} values differ, by up to "
+                                         f"{int(diff.max())}")
+                print(f"card vs host, enhance_face {noise} {variant} {k_} (portrait {i}): "
+                      f"{n_diff} of {diff.numel()} values differ, max |diff| {int(diff.max())}")
+    del gauss_d, one, face_card
 
     torch.cuda.synchronize()
     jax_side = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpuimage")]

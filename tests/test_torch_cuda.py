@@ -934,3 +934,153 @@ def test_landscape_eval_batch_on_card_equals_host(cuda_device, landscape_scenes)
         assert torch.allclose(card[k].cpu(), host[k], rtol=1e-4, atol=0), k
     for k in ("ssim_enhanced", "ssim_restored"):
         assert torch.allclose(card[k].cpu(), host[k], rtol=0, atol=1e-3), k
+
+
+# ---------------------------------------------------------------------------
+# face: the five kernels at face's shapes, the channel-last denoisers, and
+# enhance_face card against host
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def face_portraits():
+    return [synth.portrait(900 + i, 256, 171, noise=n)
+            for i, n in enumerate(synth.PORTRAIT_NOISE)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,sc,ss", [(5, 20.0, 20.0), (-1, 30.0, 10.0)])
+def test_bilateral_kernel_at_face_parameters(cuda_device, face_portraits, d, sc, ss):
+    """The polish (d 5, 20/20) and the glamour filter (radius 15) on colour
+    portraits: the kernel equal to its plain version."""
+    from tpuimage_torch.ops import bilateral
+    x = torch.from_numpy(np.stack([p[0] for p in face_portraits]))
+    radius, taps, space_w, lut = bilateral.tables_on(d, sc, ss, 3, cuda_device)
+    out = _count("bilateral", lambda: kernels.bilateral(x.to(cuda_device), taps, space_w, lut,
+                                                        radius))
+    assert torch.equal(out.cpu(), kernels.bilateral_ref(x, taps.cpu(), space_w.cpu(),
+                                                        lut.cpu(), radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["k5_rgb", "k9_rgb", "k21_mask", "sigma3_l", "k31_eyes"])
+def test_gaussian_kernel_at_face_shapes(cuda_device, face_portraits, what):
+    """face's blurs: k 5 and 9 on each channel of the portraits, k 21 on
+    the skin mask, sigma 3 (k 19) on L, k 31 on each eye ellipse."""
+    from tpuimage_torch.ops import filters
+    from tpuimage_torch.pipelines import face
+    x = torch.from_numpy(np.stack([p[0] for p in face_portraits]))
+    if what in ("k5_rgb", "k9_rgb"):
+        k = int(what[1])
+        out = _count("gaussian_blur_u8", lambda: filters.gaussian_blur_u8(
+            x.to(cuda_device), ksize=k, channels_last=True))
+        assert torch.equal(out.cpu(), filters.gaussian_blur_u8(x, ksize=k, channels_last=True))
+        return
+    if what == "k31_eyes":
+        for h, w in synth.eye_region_shapes():       # 1280 x 853's boxes, then odd sizes
+            m = face.eye_ellipse(h, w)
+            out = _count("gaussian_blur_u8", lambda: filters.gaussian_blur_u8(
+                m.to(cuda_device), ksize=31))
+            assert torch.equal(out.cpu(), kernels.gaussian_blur_u8_ref(m[None], 31)[0]), (h, w)
+        return
+    if what == "k21_mask":
+        plane, k, sigma = face.get_refined_skin_mask(x), 21, 0.0
+    else:
+        plane, k, sigma = color.rgb_to_lab(x)[..., 0].contiguous(), 0, 3.0
+    out = _count("gaussian_blur_u8", lambda: filters.gaussian_blur_u8(
+        plane.to(cuda_device), ksize=k, sigma=sigma))
+    assert torch.equal(out.cpu(), filters.gaussian_blur_u8(plane, ksize=k, sigma=sigma))
+
+
+@pytest.mark.cuda
+def test_lab_hist_clahe_kernels_on_eye_regions(cuda_device):
+    """rgb_to_lab, hist256 and clahe_apply at 4x4 tiles on the eye regions
+    of a 1280 x 853 portrait (both boxes as the eye pop cuts them, 57 x 69)
+    and on synth.EYE_EDGE_SHAPES (31-61 px, odd widths) around the first,
+    all slices of a card tensor: each kernel equal to its plain version on
+    the same inputs, and the CLAHE on the card equal to the host's."""
+    img, eyes = synth.portrait(11)
+    img_d = torch.from_numpy(img).to(cuda_device)
+    tables = color.lab_tables_on(cuda_device)
+    (ex, ey, ew, eh) = eyes[0]
+    boxes = list(eyes) + [(ex + ew // 2 - w // 2 - i, ey + eh // 2 - h // 2 + i, w, h)
+                          for i, (h, w) in enumerate(synth.EYE_EDGE_SHAPES)]
+    assert {(b[3], b[2]) for b in boxes} == set(synth.eye_region_shapes())
+    for x0, y0, w, h in boxes:
+        roi = img_d[y0:y0 + h, x0:x0 + w].contiguous()
+        lab = _count("rgb_to_lab", lambda: kernels.rgb_to_lab(roi, tables))
+        assert torch.equal(lab.cpu(), kernels.rgb_to_lab_ref(roi.cpu(), tables.cpu()))
+        lum = lab[..., 0].contiguous()[None]
+        tiles, th, tw = histogram.clahe_tiles(lum, 4, 4)
+        hist = _count("hist256", lambda: kernels.hist256_batch(tiles))
+        assert torch.equal(hist.cpu(), kernels.hist256_batch_ref(tiles.cpu()))
+        luts = histogram.tile_luts_from_counts(hist, 0.2, th * tw).reshape(1, 4, 4, 256)
+        R, C = histogram.blend_matrices_on(h, w, th, tw, 4, 4, cuda_device)
+        out = _count("clahe_apply", lambda: kernels.clahe_apply(lum, luts, R, C))
+        assert torch.equal(out.cpu(), kernels.clahe_apply_ref(lum.cpu(), luts.cpu(), R.cpu(),
+                                                              C.cpu()))
+        assert torch.equal(histogram.clahe(lum, 0.2, 4, 4).cpu(),
+                           histogram.clahe(lum.cpu(), 0.2, 4, 4)), (h, w)
+
+
+@pytest.mark.cuda
+def test_face_kernels_on_a_full_size_portrait(cuda_device):
+    """One 1280 x 853 portrait (853 wide) through the path's full-size
+    kernels on the inputs the path gives them: the glamour bilateral
+    (radius 15) on the denoised image, rgb_to_lab and the 8x8 CLAHE's
+    hist256 and clahe_apply (clip 0.5) on the tone stage's input; each
+    equal to its plain version run on the card."""
+    from tpuimage_torch.ops import bilateral
+    from tpuimage_torch.pipelines import face
+    img, eyes = synth.portrait(12)
+    pre = face.face_pre_eyes(img, "gaussian")                   # on the card
+    combined = pre["denoised_combined"][None].contiguous()
+    radius, taps, space_w, lut = bilateral.tables_on(-1, 30.0, 10.0, 3, cuda_device)
+    out = _count("bilateral", lambda: kernels.bilateral(combined, taps, space_w, lut, radius))
+    assert torch.equal(out, kernels.bilateral_ref(combined, taps, space_w, lut, radius))
+    toned = face.apply_warmth(face.adjust_saturation(
+        face.pixel_pop_eyes(pre["skin_enhanced"], eyes), face.COLOR_SATURATION), 15.0)
+    tables = color.lab_tables_on(cuda_device)
+    lab = _count("rgb_to_lab", lambda: kernels.rgb_to_lab(toned.contiguous(), tables))
+    assert torch.equal(lab, kernels.rgb_to_lab_ref(toned.contiguous(), tables))
+    lum = lab[..., 0].contiguous()[None]
+    tiles, th, tw = histogram.clahe_tiles(lum, 8, 8)
+    hist = _count("hist256", lambda: kernels.hist256_batch(tiles))
+    assert torch.equal(hist, kernels.hist256_batch_ref(tiles))
+    luts = histogram.tile_luts_from_counts(hist, 0.5, th * tw).reshape(1, 8, 8, 256)
+    R, C = histogram.blend_matrices_on(1280, 853, th, tw, 8, 8, cuda_device)
+    out = _count("clahe_apply", lambda: kernels.clahe_apply(lum, luts, R, C))
+    assert torch.equal(out, kernels.clahe_apply_ref(lum, luts, R, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,k", [("median", 3), ("median", 5), ("gaussian", 5),
+                                  ("gaussian", 9)])
+def test_channel_last_denoisers_on_card(cuda_device, face_portraits, op, k):
+    from tpuimage_torch.ops import filters, median
+    x = torch.from_numpy(face_portraits[1][0])
+    fn = ((lambda t: median.median_blur(t, k, channels_last=True)) if op == "median" else
+          (lambda t: filters.gaussian_blur_u8(t, ksize=k, channels_last=True)))
+    card = fn(x.to(cuda_device))
+    assert card.shape == x.shape and torch.equal(card.cpu(), fn(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["script", "gui"])
+@pytest.mark.parametrize("noise", ["gaussian", "impulse"])
+def test_enhance_face_on_card_equals_host(cuda_device, face_portraits, noise, variant):
+    """The whole path on one small portrait, the synth eye boxes given:
+    every image within the night_rgb tolerance of the host's (expected
+    equal), and the path's kernels launched."""
+    from tpuimage_torch.pipelines import face
+    img, eyes = face_portraits[synth.PORTRAIT_NOISE.index(noise)]
+    kernels.reset_launch_counts()
+    card = face.enhance_face(img, eyes=eyes, variant=variant)     # an array: on the card
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name in ("bilateral", "rgb_to_lab", "hist256", "clahe_apply", "gaussian_blur_u8"):
+        assert counts[name] > 0, (name, counts)
+    host = face.enhance_face(img, eyes=eyes, variant=variant, device="cpu")
+    assert card["noise_type"] == host["noise_type"] == noise
+    for k in ("skin_mask", "skin_enhanced", "features_popped", "final"):
+        assert card[k].device.type == "cuda"
+        _landscape_within(card[k], host[k], k)

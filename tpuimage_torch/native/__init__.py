@@ -1,9 +1,11 @@
-"""Native (C++) host-side helpers of the quad fit, loaded via ctypes.
+"""Native (C++) host-side helpers, loaded via ctypes: the quad fit's
+contour walk and segment rasterizer (``contours.cpp``) and the Haar
+cascade's level evaluator (``haar.cpp``).
 
-``contours.cpp`` is built at first use with ``g++ -O3 -shared`` into
-``tpuimage_torch/_build/`` (named by a digest of the source and flags);
-every consumer keeps a pure-numpy fallback, so the package works where
-no compiler is present.
+Both sources are built at first use with ``g++ -O3 -shared`` into one
+library under ``tpuimage_torch/_build/`` (named by a digest of the sources
+and flags); every consumer keeps a pure-numpy fallback, so the package
+works where no compiler is present.
 """
 from __future__ import annotations
 
@@ -15,11 +17,22 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-_SRC = Path(__file__).resolve().parent / "contours.cpp"
+_SRCS = [Path(__file__).resolve().parent / name for name in ("contours.cpp", "haar.cpp")]
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-# no -ffast-math and no FMA contraction: plain IEEE double ops, as the
-# numpy fallbacks compute
-_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
+
+
+def _flags() -> list:
+    """No -ffast-math and no FMA contraction: plain IEEE double ops, as the
+    numpy fallbacks compute. -mavx2 where the CPU has it enables haar.cpp's
+    4-window path, whose lanes are IEEE ops like the scalar ones."""
+    flags = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
+    try:
+        with open("/proc/cpuinfo") as f:
+            if " avx2 " in f.read().replace("\n", " "):
+                flags.append("-mavx2")
+    except OSError:
+        pass
+    return flags
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -27,14 +40,16 @@ _failed = False
 
 
 def _build() -> Optional[Path]:
-    digest = hashlib.sha1(" ".join(_FLAGS).encode() + _SRC.read_bytes()).hexdigest()[:16]
+    flags = _flags()
+    digest = hashlib.sha1(" ".join(flags).encode()
+                          + b"".join(src.read_bytes() for src in _SRCS)).hexdigest()[:16]
     so = _BUILD_DIR / f"libtpuimage_torch_host_{digest}.so"
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     try:
-        r = subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
+        r = subprocess.run(["g++", *flags, *map(str, _SRCS), "-o", str(tmp)],
                            capture_output=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired):
         return None
@@ -69,5 +84,11 @@ def load_native() -> Optional[ctypes.CDLL]:
             lib.tpuimage_draw_segments.argtypes = [
                 ctypes.POINTER(ctypes.c_double), i64,
                 ctypes.POINTER(ctypes.c_uint8), i64, i64, ctypes.c_double]
+            i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
+            lib.tpuimage_haar_level.restype = i64
+            lib.tpuimage_haar_level.argtypes = [
+                ctypes.POINTER(ctypes.c_uint8), i64, i64, i64, i64, i64,
+                i32p, f32p, i32p, f32p, f32p, f32p, i32p, i64,
+                i32p, ctypes.POINTER(ctypes.c_double), i32p, i64]
             _lib = lib
     return _lib

@@ -43,6 +43,20 @@ def max_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.maximum(a, b)
 
 
+def in_range(img: torch.Tensor, lower, upper) -> torch.Tensor:
+    """cv2.inRange: 255 where lower <= img <= upper, else 0. Bounds given
+    per channel (sequences) test an (..., H, W, C) image in every channel
+    and give (..., H, W); scalar bounds test each value of a plane.
+    (tpuimage reduces when the image is 3-D; the bounds decide here so that
+    a batch of images takes the same call.)"""
+    lo = torch.as_tensor(lower, dtype=img.dtype, device=img.device)
+    hi = torch.as_tensor(upper, dtype=img.dtype, device=img.device)
+    ok = (img >= lo) & (img <= hi)
+    if lo.dim() > 0 or hi.dim() > 0:
+        ok = ok.all(dim=-1)
+    return ok.to(torch.uint8) * 255
+
+
 def add_weighted(a: torch.Tensor, alpha: float, b: torch.Tensor, beta: float,
                  gamma: float = 0.0) -> torch.Tensor:
     """cv2.addWeighted: saturate(a*alpha + b*beta + gamma) in f32. On bytes

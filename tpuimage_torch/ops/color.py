@@ -1,7 +1,7 @@
 """Colour conversions bit-matching OpenCV's 8-bit paths (counterpart of
-``tpuimage.ops.color``): RGB -> gray, RGB -> Lab (fixed point, the
-``rgb_to_lab`` kernel on the card), Lab -> RGB (float) and RGB <-> HSV
-(8-bit, H in [0, 180))."""
+``tpuimage.ops.color``): RGB -> gray, RGB -> YCrCb (Q14 fixed point), RGB
+-> Lab (fixed point, the ``rgb_to_lab`` kernel on the card), Lab -> RGB
+(float) and RGB <-> HSV (8-bit, H in [0, 180))."""
 from __future__ import annotations
 
 import functools
@@ -20,6 +20,25 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) uint8 RGB -> (..., H, W) uint8 gray."""
     r, g, b = i32(img[..., 0]), i32(img[..., 1]), i32(img[..., 2])
     return descale(r * _R2Y15 + g * _G2Y15 + b * _B2Y15, 15).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# YCrCb (8-bit, output order Y, Cr, Cb): OpenCV's historical Q14 path
+# ---------------------------------------------------------------------------
+_R2Y, _G2Y, _B2Y = 4899, 9617, 1868
+_YUV_SHIFT = 14
+_YCRCB_C3 = 11682  # cvRound(0.713 * 2**14)
+_YCRCB_C4 = 9241   # cvRound(0.564 * 2**14)
+
+
+def rgb_to_ycrcb(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (..., 3) uint8 YCrCb, exact integer arithmetic."""
+    r, g, b = i32(img[..., 0]), i32(img[..., 1]), i32(img[..., 2])
+    y = descale(r * _R2Y + g * _G2Y + b * _B2Y, _YUV_SHIFT)
+    delta = 128 << _YUV_SHIFT
+    cr = descale((r - y) * _YCRCB_C3 + delta, _YUV_SHIFT)
+    cb = descale((b - y) * _YCRCB_C4 + delta, _YUV_SHIFT)
+    return saturate_u8(torch.stack([y, cr, cb], dim=-1))
 
 
 # ---------------------------------------------------------------------------

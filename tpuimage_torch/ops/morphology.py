@@ -1,4 +1,4 @@
-"""Erode / dilate / close / blackhat with flat structuring elements
+"""Erode / dilate / open / close / blackhat with flat structuring elements
 (counterpart of ``tpuimage.ops.morphology``).
 
 Borders follow OpenCV's constant +inf/-inf semantics (erode pads 255,
@@ -84,6 +84,10 @@ def dilate(img: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tens
     for _ in range(iterations):
         img = _window_extreme(img, se, is_erode=False)
     return img
+
+
+def morph_open(img: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
+    return dilate(erode(img, se, iterations), se, iterations)
 
 
 def morph_close(img: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:

@@ -88,14 +88,17 @@ def _pow_np(x: np.ndarray, p: float):
 def sky_blend_table(sky_power: float, blend: float) -> np.ndarray:
     """(256, 256) uint8: entry [l, c] is the sky-protected L for original
     L = l and CLAHE L = c: trunc(c * w + l * (1 - w)) with w = (1 -
-    (l / 255) ** sky_power) * blend, in the jitted program's f32 (``1 -
-    x ** p`` and the first product of the sum fused)."""
+    (l / 255) ** sky_power) * blend, in the f32 of tpuimage's jitted
+    programs (``enhance_contrast_clahe``, ``enhance_image``,
+    ``landscape_gui`` and the vmapped evaluation alike): ``1 - x ** p``
+    fused, and of the sum's two products the ``l * (1 - w)`` one fused
+    into the add. (The blend's lines jitted alone fuse the other product.)"""
     lo = np.arange(256, dtype=_F32)[:, None]
     lc = np.arange(256, dtype=_F32)[None, :]
     left, right = _pow_np(lo * _RECIP_255, sky_power)
     t = _fma_np(-left, right, _F32(1)) if right is not None else _F32(1) - left
     ew = t * _F32(blend)
-    val = _fma_np(lc, ew, lo * (_F32(1) - ew))
+    val = _fma_np(lo, _F32(1) - ew, lc * ew)
     return np.clip(val, 0, 255).astype(np.uint8)
 
 

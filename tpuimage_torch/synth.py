@@ -1,6 +1,7 @@
 """Seeded numpy generators of test images (no PIL, no cv2, no torch):
 document photos and pages for DocScanner and morph_seq, night scenes for
-the night pipelines and daylight landscapes for the landscape pipeline.
+the night pipelines, daylight landscapes for the landscape pipeline and
+noisy portraits for the face pipeline.
 
 ``document_photo`` draws a textured dark background and, optionally, a
 bright page quad under mild perspective carrying rows of dark text
@@ -12,6 +13,8 @@ generator serves 320x240 test photos and 1600x1200 ones (height x width,
 portrait, as a phone holds them).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -223,6 +226,100 @@ def landscape_scene(seed: int, height: int = 853, width: int = 1280) -> np.ndarr
     rgb = np.where((v < horizon[None, :])[..., None], sky, ground)
     rgb += rng.normal(0.0, 2.0, size=rgb.shape)
     return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+PORTRAIT_NOISE = ("gaussian", "impulse")
+
+
+def _paint(rgb: np.ndarray, dist: np.ndarray, colour, soft: float) -> np.ndarray:
+    """``rgb`` with ``colour`` laid over the region dist <= 0 (``dist`` in
+    pixels, negative inside), its edge a linear ramp ``soft`` pixels wide."""
+    a = np.clip(0.5 - dist / soft, 0.0, 1.0)[..., None]
+    return rgb * (1.0 - a) + np.asarray(colour, dtype=np.float64) * a
+
+
+def _ellipse_dist(u, v, cx, cy, ax, ay) -> np.ndarray:
+    """About the distance in pixels to the ellipse's outline (< 0 inside)."""
+    return (np.sqrt(((u - cx) / ax) ** 2 + ((v - cy) / ay) ** 2) - 1.0) * min(ax, ay)
+
+
+# (h, w) of eye regions beside the portraits' own: odd widths, heights no
+# multiple of 4 (CLAHE's padded tile geometry), 33-61 px
+EYE_EDGE_SHAPES = ((31, 45), (37, 51), (44, 61), (53, 33), (61, 57), (35, 39), (48, 47),
+                   (59, 43))
+
+
+def portrait_eye_shape(height: int = 1280, width: int = 853) -> Tuple[int, int]:
+    """(h, w) of the two eye boxes ``portrait`` returns at this size (57 x
+    69 at 1280 x 853)."""
+    ax, ay = width * 0.27, height * 0.26
+    return max(int(round(0.17 * ay)), 3), max(int(round(0.30 * ax)), 3)
+
+
+def eye_region_shapes(height: int = 1280, width: int = 853) -> Tuple[Tuple[int, int], ...]:
+    """The eye regions the face path runs on a portrait of this size, then
+    ``EYE_EDGE_SHAPES``."""
+    return (portrait_eye_shape(height, width),) + EYE_EDGE_SHAPES
+
+
+def portrait(seed: int, height: int = 1280, width: int = 853, noise: str = "gaussian"):
+    """A (height, width, 3) uint8 head-and-shoulders portrait and its two
+    eye boxes [(x, y, w, h), (x, y, w, h)] (the image's left eye first).
+
+    A shaded skin-toned face and neck (every skin pixel inside the face
+    pipeline's YCrCb box, Cr 133-173 and Cb 77-127, before the noise),
+    dark hair over the head, two darker eyes (white, a brown iris, a black
+    pupil) under brows, lips, shoulders and a cool background, every edge
+    a ramp a few pixels wide. Then seeded sensor noise: ``"gaussian"`` adds
+    N(0, 10) to every value; ``"impulse"`` sets 6% of the pixels to black
+    or white (salt and pepper). The face pipeline's kurtosis classifier
+    reads the first near 3 and the second far above its threshold of 5."""
+    if noise not in PORTRAIT_NOISE:
+        raise ValueError(f"noise must be one of {PORTRAIT_NOISE}, got {noise!r}")
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:height, 0:width].astype(np.float64)
+    yn, xn = v / height, u / width
+    soft = max(8.0, 0.006 * width)
+    rgb = (np.array([150.0, 165.0, 185.0]) * (0.95 - 0.15 * yn[..., None])
+           + 6.0 * np.sin(2 * np.pi * (xn * rng.uniform(1, 3) + yn * rng.uniform(1, 3)))[..., None])
+    cx, cy = width * rng.uniform(0.48, 0.52), height * rng.uniform(0.40, 0.44)
+    ax, ay = width * 0.27, height * 0.26
+    rgb = _paint(rgb, np.maximum(cy + 1.3 * ay - v, np.abs(u - cx) - width * 0.42),
+                 (60.0, 70.0, 110.0), soft)                                  # shoulders
+    rgb = _paint(rgb, np.maximum(_ellipse_dist(u, v, cx, cy - 0.12 * ay, 1.12 * ax, 1.12 * ay),
+                                 v - (cy - 0.3 * ay)), (55.0, 38.0, 28.0), soft)   # hair
+    # skin: shade 0.78-1.0 of (228, 176, 146) keeps Cr ~151-158 and Cb ~100-105
+    shade = (0.9 + 0.07 * np.cos(np.pi * np.clip((u - cx) / ax, -1, 1))
+             - 0.05 * np.clip((v - cy) / ay, -1, 1.5))
+    skin = np.array([228.0, 176.0, 146.0]) * np.clip(shade, 0.78, 1.0)[..., None]
+    neck = np.maximum(np.abs(u - cx) - 0.45 * ax, np.maximum(cy - v, v - (cy + 1.4 * ay)))
+    face = np.maximum(_ellipse_dist(u, v, cx, cy, ax, ay), cy - 0.33 * ay - v)
+    a = np.clip(0.5 - np.minimum(face, neck) / soft, 0.0, 1.0)[..., None]
+    rgb = rgb * (1.0 - a) + skin * a
+    rgb = _paint(rgb, _ellipse_dist(u, v, cx, cy + 0.55 * ay, 0.32 * ax, 0.07 * ay),
+                 (180.0, 90.0, 95.0), soft)                                  # lips
+    eh, ew = portrait_eye_shape(height, width)
+    boxes = []
+    for side in (-1, 1):
+        ex, ey = cx + side * 0.42 * ax, cy - 0.12 * ay
+        rgb = _paint(rgb, _ellipse_dist(u, v, ex, ey - 0.9 * eh, 0.6 * ew, 0.12 * eh + 1),
+                     (60.0, 42.0, 30.0), soft)                               # brow
+        rgb = _paint(rgb, _ellipse_dist(u, v, ex, ey, 0.5 * ew, 0.35 * eh),
+                     (235.0, 232.0, 228.0), soft)
+        rgb = _paint(rgb, _ellipse_dist(u, v, ex, ey, 0.3 * eh, 0.3 * eh), (95.0, 60.0, 35.0),
+                     soft)
+        rgb = _paint(rgb, _ellipse_dist(u, v, ex, ey, 0.13 * eh, 0.13 * eh), (12.0, 10.0, 10.0),
+                     soft)
+        boxes.append((int(round(ex - ew / 2)), int(round(ey - eh / 2)), ew, eh))
+    if noise == "gaussian":
+        rgb = rgb + rng.normal(0.0, 10.0, size=rgb.shape)
+    out = np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+    if noise == "impulse":
+        hit = rng.random((height, width)) < 0.06
+        salt = rng.random((height, width)) < 0.5
+        out[hit & salt] = 255
+        out[hit & ~salt] = 0
+    return out, boxes
 
 
 # ---------------------------------------------------------------------------
