@@ -2,8 +2,10 @@
 """Drive tpuimage_torch's paths once on one CUDA card: DocScanner's
 serving paths (scan_batch, scan_stream) and its one-document path
 (process_document), the night paths (gray and RGB), morph_seq,
-landscape (the GUI route and the degrade / restore evaluation) and face
-(both tails of enhance_face).
+landscape (the GUI route and the degrade / restore evaluation), face
+(both tails of enhance_face), and classify and route (the heuristic
+classifiers, CLIP ViT-B/32 and the label router over the four
+enhancement paths).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -109,7 +111,26 @@ Phases (any failure raises and the exit code is non-zero):
    before and read just after, ms a portrait, MP/s, a profiled window and
    the peak device memory; the legacy NLM branch on one portrait and the
    Haar eye detector (native, on the host) timed once; card against host
-   on 2 portraits of each combination.
+   on 2 portraits of each combination;
+12. classify and route on ``synth.scene_mix``: 8 images, 2 night scenes,
+   2 landscape scenes (1280x853), 2 portraits and 2 document photos
+   (853x1280): the cue program's kernels at its shapes first (hist256,
+   rank_extract and hough_votes on each shape group's stack at the cue
+   budget, and on two tall, narrow photos of 200x1600, where the budget
+   is its 128 * h term), exact against their plain versions and timed,
+   and the cue program card = host; then ``classify_weighted_batch`` and
+   ``classify_priority_batch`` on the mix with the counters reset just
+   before and read just after, their labels, the ms a batch beside the
+   host's Haar face pass and a profiled window; CLIP ViT-B/32 built from
+   ``synth.clip_state_dict`` (~151M seeded values) with the four prompts'
+   text features from ``SimpleTokenizer(merges=synth.prompt_merges())``,
+   ``predict_batch`` on 32 images of each shape and on 1 (images/s, peak
+   device memory); ``enhance_for_label`` on all 8 (every route on the
+   card, counted), then ``classify_and_enhance`` on each image (images/s,
+   the routes taken, counted); card against host on all 8: labels and
+   probabilities equal, CLIP probabilities within 1e-4 with the argmax
+   equal, each route within its card-vs-host contract (3 levels on <
+   0.1%; the binary page < 0.2% of pixels).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record (all twelve kernels, each launched on
@@ -211,6 +232,13 @@ PATH_STATS_TOL = (1e-4, 1e-3)  # card vs host: PSNR relative, SSIM absolute
 FACE = (1280, 853)             # a portrait photo, height x width
 N_FACE = 4
 FACE_COMBOS = (("gaussian", "script"), ("gaussian", "gui"), ("impulse", "script"))
+NARROW = (1600, 200)           # a tall, narrow photo: the cue's edge budget is 128 * h
+CLIP_TOL = 1e-4                # card vs host: CLIP probabilities, absolute
+# the cue program's kernels, and those of the four routes (all but morph_seq's)
+CLASSIFY_KERNELS = ("hist256", "rank_extract", "hough_votes")
+ROUTE_KERNELS = ("hist256", "rank_extract", "hough_votes", "rgb_to_lab", "clahe_apply",
+                 "bilateral", "gaussian_blur_u8", "gauss_chain", "blackhat_rect",
+                 "inkmask_weighted")
 
 
 def _nvidia_smi() -> str:
@@ -237,6 +265,21 @@ def _cuda_ms(fn, reps: int = 10, calls: int = 1) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of one call of fn in ms, after one warm call,
+    each call ended by a synchronize: for paths whose host work (Haar,
+    contours, fetches) the card's events do not see."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -1622,6 +1665,193 @@ def main() -> int:
                 print(f"card vs host, enhance_face {noise} {variant} {k_} (portrait {i}): "
                       f"{n_diff} of {diff.numel()} values differ, max |diff| {int(diff.max())}")
     del gauss_d, one, face_card
+
+    # --- 12. classify and route -------------------------------------------------
+    print(f"[phase 12 at {time.perf_counter() - t_start:.1f} s]")
+    from tpuimage_torch.classify import clip, heuristic, router
+    from tpuimage_torch.classify.tokenizer import SimpleTokenizer
+    mix = synth.scene_mix(0)
+    mix_imgs = [img for _, img in mix]
+    wide = [img for img in mix_imgs if img.shape[0] < img.shape[1]]       # night, landscape
+    tall = [img for img in mix_imgs if img.shape[0] > img.shape[1]]       # faces, documents
+    # the three kernels of the cue program on its stacks, at the cue budget: the
+    # mix's two shape groups, and two tall, narrow photos (the 128 * h term)
+    for what, imgs in (("wide", wide), ("tall", tall),
+                       ("narrow", [synth.document_photo(1250 + i, *NARROW) for i in range(2)])):
+        stack = torch.from_numpy(np.stack(imgs)).to(dev)
+        gray = rgb_to_gray(stack)
+        b, h, w = gray.shape
+        budget = heuristic.cue_budget(h, w)
+        if (what == "narrow") != (budget == 128 * h):
+            raise AssertionError(f"cue budget {budget} at {w}x{h}")
+        rows = gray.reshape(b, h * w)
+        offset_rows = (rows.to(torch.int64) + 256 * torch.arange(b, device=dev)[:, None]
+                       ).reshape(-1)
+        rec = _compare(
+            f"hist256 classify {what} ({b} gray images {w}x{h}: the cue's Otsu)",
+            lambda: kernels.hist256_batch(rows), lambda: kernels.hist256_batch_ref(rows),
+            _hist256_bound(rows),
+            [lambda: torch.bincount(offset_rows, minlength=b * 256).view(b, 256)])
+        _sub_record(records["hist256"], f"classify_{what}", rec)
+        cue_edges = edges.canny(gray, 50, 150)
+        rank, mask, kk = _rank_planes(cue_edges, budget)
+        rec = _compare(
+            f"rank_extract classify {what} ({b} edge maps {w}x{h}, kk {kk}, budget {budget}, "
+            f"{int(mask.sum())} edges)",
+            lambda: kernels.rank_extract(rank, mask, kk),
+            lambda: kernels.rank_extract_ref(rank, mask, kk), _rank_bound(mask, kk),
+            [lambda: _rank_extract_nonzero(mask, kk)], plain_calls=5)
+        _sub_record(records["rank_extract"], f"classify_{what}", rec)
+        numrho = (h + w) * 2 + 1
+        xs, ys, counts, _ = hough.compact_edges(cue_edges, budget)
+        args = (xs, ys, counts, cos_t, sin_t, numrho, (numrho - 1) // 2)
+        edges_n, n_t = int(counts.sum()), cos_t.shape[0]
+        rec = _compare(
+            f"hough_votes classify {what} ({b} edge maps {w}x{h}, {int(counts.max())} edges "
+            "max)", lambda: kernels.hough_votes(*args), lambda: kernels.hough_votes_ref(*args),
+            _bound(8 * edges_n + 4 * b + 8 * n_t + 4 * b * numrho * n_t, 4 * edges_n * n_t),
+            [lambda: _hough_bincount(*args)], plain_calls=5)
+        _sub_record(records["hough_votes"], f"classify_{what}", rec)
+        for c, hh in zip(heuristic.device_cues(stack), heuristic.device_cues(stack.cpu())):
+            if not torch.equal(c.cpu(), hh):
+                raise AssertionError(f"the cue program {what}: card and host differ")
+        ms = _cuda_ms(lambda: heuristic.device_cues(stack), reps=3, calls=1)
+        print(f"cue program {what}: {ms:.3f} ms for {b} images {w}x{h} (CUDA events, warm, "
+              "median of 3, input on the card); card = host")
+        del stack, gray, rows, offset_rows, cue_edges, rank, mask, xs, ys, counts, args
+
+    # the heuristic classifiers on the mix (arrays from the host, as a user calls them)
+    heuristic.classify_weighted_batch(mix_imgs)                    # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    weighted = heuristic.classify_weighted_batch(mix_imgs)
+    priority = heuristic.classify_priority_batch(mix_imgs)
+    torch.cuda.synchronize()
+    for k_, v in _launched("classify_weighted_batch + classify_priority_batch",
+                           kernels.launch_counts(), CLASSIFY_KERNELS).items():
+        launches[k_] += v
+    for (kind, _), (label, probs), plabel in zip(mix, weighted, priority):
+        if not np.isclose(sum(probs.values()), 1.0) or label not in heuristic.LABELS:
+            raise AssertionError(f"classify {kind}: {label} {probs}")
+        print(f"classify {kind}: weighted {label} "
+              f"{ {k_: round(p, 4) for k_, p in probs.items()} }, priority {plabel}")
+    batch_ms = _wall_ms(lambda: heuristic.classify_weighted_batch(mix_imgs))
+    grays = [rgb_to_gray(torch.from_numpy(img)).numpy() for img in mix_imgs]
+    haar_ms = _wall_ms(lambda: haar.detect_faces_batch(grays))
+    # the batch again with the Haar pass's boxes handed in: the cue programs,
+    # the fetches and the rectangle cue alone
+    faces = haar.detect_faces_batch(grays)
+    heuristic.detect_faces_batch = lambda _grays: faces
+    try:
+        rest_ms = _wall_ms(lambda: heuristic.classify_weighted_batch(mix_imgs))
+        if heuristic.classify_weighted_batch(mix_imgs) != weighted:
+            raise AssertionError("classify with the Haar boxes handed in differs")
+    finally:
+        heuristic.detect_faces_batch = haar.detect_faces_batch
+    print(f"classify_weighted_batch: {batch_ms:.1f} ms a batch of {len(mix)} (host clock, warm, "
+          f"median of 3, arrays from the host); the host's Haar face pass alone {haar_ms:.1f} "
+          f"ms; the batch with its boxes handed in (the cue programs, the fetches and the "
+          f"rectangle cue) {rest_ms:.1f} ms")
+    _print_profile("classify_weighted_batch", batch_ms,
+                   lambda: heuristic.classify_weighted_batch(mix_imgs))
+
+    # CLIP ViT-B/32 at its full shapes on seeded weights
+    t0 = time.perf_counter()
+    clip_sd = synth.clip_state_dict(7)
+    tokens = SimpleTokenizer(merges=synth.prompt_merges()).tokenize(
+        [clip.PROMPTS[label] for label in clip.LABELS])
+    text_card = clip.compute_text_features(clip_sd, tokens)
+    model = clip.ClipZeroShot(clip_sd, text_card.cpu().numpy())
+    n_params = sum(v.size for v in clip_sd.values())
+    print(f"CLIP ViT-B/32: {n_params / 1e6:.1f}M parameters (seeded), text features "
+          f"{tuple(text_card.shape)} and the model on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    clip_card = {}
+    for what, batch in ((f"32 images {NIGHT[1]}x{NIGHT[0]}", np.stack(wide * 8)),
+                        (f"32 images {NIGHT[0]}x{NIGHT[1]}", np.stack(tall * 8)),
+                        (f"1 image {NIGHT[1]}x{NIGHT[0]}", np.stack(wide[:1]))):
+        batch_d = torch.from_numpy(batch).to(dev)
+        probs = model.predict_batch(batch_d)
+        if probs.shape != (len(batch), 4) or not bool(torch.isfinite(probs).all()) or \
+                not torch.allclose(probs.sum(-1), torch.ones(len(batch), device=dev)):
+            raise AssertionError(f"CLIP {what}: probabilities {probs}")
+        clip_card[what] = probs[:4].cpu()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2 ** 20
+        ms = _cuda_ms(lambda: model.predict_batch(batch_d), reps=3, calls=1)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"CLIP predict_batch, {what}: {ms:.3f} ms a call = {len(batch) * 1e3 / ms:.1f} "
+              f"images/s (CUDA events, warm, median of 3, input on the card); device memory: "
+              f"peak {peak_mb - base_mb:.1f} MiB above the {base_mb:.1f} MiB held")
+        if len(batch) == 32 and what.endswith(f"{NIGHT[1]}x{NIGHT[0]}"):
+            _print_profile(f"CLIP predict_batch {what}", ms, lambda: model.predict_batch(batch_d))
+        del batch_d
+
+    # the router: every route on the card, two images of each kind, then the
+    # whole flow (classify, then route) on each image of the mix
+    router.classify_and_enhance(mix_imgs[0])                       # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    routed = [router.enhance_for_label(kind, img) for kind, img in mix]
+    torch.cuda.synchronize()
+    for k_, v in _launched("enhance_for_label (the four routes, 2 images each)",
+                           kernels.launch_counts(), ROUTE_KERNELS).items():
+        launches[k_] += v
+    for (kind, img), out in zip(mix, routed):
+        if out.device.type != dev.type or out.dtype != torch.uint8 or out.dim() != 3 or \
+                out.shape[-1] != 3 or (kind != "document" and out.shape != img.shape):
+            raise AssertionError(f"route {kind}: {out.device} {out.dtype} {tuple(out.shape)}")
+    routed = [r.cpu() for r in routed]
+    flow_s = []
+    for turn in range(2):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        flow = [router.classify_and_enhance(img) for img in mix_imgs]
+        torch.cuda.synchronize()
+        flow_s.append(time.perf_counter() - t0)
+        if turn == 0:
+            for k_, v in _launched("classify_and_enhance (8 images)", kernels.launch_counts(),
+                                   CLASSIFY_KERNELS).items():
+                launches[k_] += v
+    taken = {label: sum(1 for f in flow if f[0] == label) for label in heuristic.LABELS}
+    if [f[0] for f in flow] != [label for label, _ in weighted]:
+        raise AssertionError("classify_and_enhance routed other labels than the classifier gave")
+    print(f"classify_and_enhance: {len(mix) / statistics.median(flow_s):.2f} images/s "
+          f"({', '.join(f'{t:.2f}' for t in flow_s)} s for the {len(mix)} images of the mix, one "
+          f"call each, arrays from the host, host clock); routes taken: {taken}")
+
+    # card against host: the 8 images of the mix (2 of each kind) on the CPU
+    if heuristic.classify_weighted_batch(mix_imgs, device="cpu") != weighted or \
+            heuristic.classify_priority_batch(mix_imgs, device="cpu") != priority:
+        raise AssertionError("classify: card and host labels or probabilities differ")
+    print("card vs host, classify_weighted_batch / classify_priority_batch: labels and "
+          "probabilities equal")
+    text_host = clip.compute_text_features(clip_sd, tokens, device="cpu")
+    model_host = clip.ClipZeroShot(clip_sd, text_card.cpu().numpy(), device="cpu")
+    for what, imgs in ((f"32 images {NIGHT[1]}x{NIGHT[0]}", wide),
+                       (f"32 images {NIGHT[0]}x{NIGHT[1]}", tall)):
+        host = model_host.predict_batch(np.stack(imgs))
+        err = float((clip_card[what] - host).abs().max())
+        if err > CLIP_TOL or not torch.equal(clip_card[what].argmax(-1), host.argmax(-1)):
+            raise AssertionError(f"CLIP card vs host {what}: max |diff| {err}")
+        print(f"card vs host, CLIP probabilities ({len(imgs)} images of {what[10:]}): max |diff| "
+              f"{err:.2e} (limit {CLIP_TOL}), argmax equal; text features max |diff| "
+              f"{float((text_card.cpu() - text_host).abs().max()):.2e}")
+    for (kind, img), card_out in zip(mix, routed):
+        host = router.enhance_for_label(kind, img, device="cpu")
+        if card_out.shape != host.shape:
+            raise AssertionError(f"route {kind}: {tuple(card_out.shape)} vs {tuple(host.shape)}")
+        diff = (card_out.to(torch.int32) - host.to(torch.int32)).abs()
+        n_diff = int((diff > 0).sum())
+        max_levels, max_share = (0, BINARY_TOL) if kind == "document" else NIGHT_RGB_TOL
+        if (kind != "document" and int(diff.max()) > max_levels) or \
+                n_diff >= max_share * diff.numel():
+            raise AssertionError(f"route {kind}: {n_diff} of {diff.numel()} values differ, by "
+                                 f"up to {int(diff.max())}")
+        print(f"card vs host, route {kind}: {n_diff} of {diff.numel()} values differ, max "
+              f"|diff| {int(diff.max())}")
+    del clip_sd, model, model_host, routed, flow
 
     torch.cuda.synchronize()
     jax_side = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpuimage")]

@@ -1084,3 +1084,114 @@ def test_enhance_face_on_card_equals_host(cuda_device, face_portraits, noise, va
     for k in ("skin_mask", "skin_enhanced", "features_popped", "final"):
         assert card[k].device.type == "cuda"
         _landscape_within(card[k], host[k], k)
+
+
+# ---------------------------------------------------------------------------
+# classify and route: the cue program's three kernels at its shapes, the
+# classifiers, CLIP and the routes, card against host
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def classify_mix():
+    return synth.scene_mix(0, 427, 640)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["landscape_shape", "portrait_shape", "tall_narrow"])
+def test_cue_kernels_on_card(cuda_device, classify_mix, group):
+    """hist256 (the Otsu rows), rank_extract (the edge compaction at the
+    cue budget) and hough_votes (the line count) on the cue program's
+    stacks, each exact against its plain version; then the whole cue
+    program card = host."""
+    from tpuimage_torch.classify import heuristic
+    from tpuimage_torch.ops import edges as edgeops
+    if group == "tall_narrow":   # 1600 x 200: the budget is the 128 * h term
+        imgs = [synth.document_photo(5 + i, 1600, 200) for i in range(2)]
+    else:
+        imgs = [img for _, img in classify_mix
+                if (img.shape[0] < img.shape[1]) == (group == "landscape_shape")]
+    stack = torch.from_numpy(np.stack(imgs)).to(cuda_device)
+    gray = color.rgb_to_gray(stack)
+    b, h, w = gray.shape
+    rows = gray.reshape(b, h * w)
+    out = _count("hist256", lambda: kernels.hist256_batch(rows))
+    assert torch.equal(out.cpu(), kernels.hist256_batch_ref(rows.cpu()))
+    flat = edgeops.canny(gray, 50, 150).reshape(b, h * w) > 0
+    rank, counts = hough.exclusive_rank(flat)
+    budget = heuristic.cue_budget(h, w)
+    if group == "tall_narrow":
+        assert budget == 128 * h
+    kk = max(int(torch.clamp(counts, max=budget).max()), 1)
+    ci = _count("rank_extract", lambda: kernels.rank_extract(rank.t(), flat.t(), kk))
+    assert torch.equal(ci.cpu(), kernels.rank_extract_ref(rank.t().cpu(), flat.t().cpu(), kk))
+    xs, ys, kept, _ = hough.compact_edges(flat.reshape(b, h, w).to(torch.uint8), budget)
+    numrho = 2 * (w + h) + 1
+    cos_np, sin_np = hough.hough_tables()
+    cos_t, sin_t = torch.from_numpy(cos_np).to(cuda_device), torch.from_numpy(sin_np).to(cuda_device)
+    votes = _count("hough_votes", lambda: kernels.hough_votes(xs, ys, kept, cos_t, sin_t, numrho,
+                                                              (numrho - 1) // 2))
+    assert torch.equal(votes.cpu(), kernels.hough_votes_ref(xs.cpu(), ys.cpu(), kept.cpu(),
+                                                            cos_t.cpu(), sin_t.cpu(), numrho,
+                                                            (numrho - 1) // 2))
+    card = heuristic.device_cues(stack)
+    host = heuristic.device_cues(stack.cpu())
+    for c, hh in zip(card, host):
+        assert c.device.type == "cuda" and torch.equal(c.cpu(), hh)
+
+
+@pytest.mark.cuda
+def test_classifiers_on_card_equal_host(cuda_device, classify_mix):
+    from tpuimage_torch.classify import heuristic
+    imgs = [img for _, img in classify_mix]
+    kernels.reset_launch_counts()
+    card_w = heuristic.classify_weighted_batch(imgs)          # arrays: on the card
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name in ("hist256", "rank_extract", "hough_votes"):
+        assert counts[name] > 0, (name, counts)
+    assert card_w == heuristic.classify_weighted_batch(imgs, device="cpu")
+    assert heuristic.classify_priority_batch(imgs) == \
+        heuristic.classify_priority_batch(imgs, device="cpu")
+    for img, w in zip(imgs[:4], card_w):
+        assert heuristic.classify_weighted(img) == w
+
+
+@pytest.mark.cuda
+def test_clip_on_card_equals_host(cuda_device, classify_mix):
+    """ViT-B/32 at its full shapes on seeded weights: probabilities on the
+    card within 1e-4 of the host's, the argmax equal."""
+    from tpuimage_torch.classify import clip
+    from tpuimage_torch.classify.tokenizer import SimpleTokenizer
+    sd = synth.clip_state_dict(7)
+    tokens = SimpleTokenizer(merges=synth.prompt_merges()).tokenize(
+        [clip.PROMPTS[label] for label in clip.LABELS])
+    tf_card = clip.compute_text_features(sd, tokens)
+    tf_host = clip.compute_text_features(sd, tokens, device="cpu")
+    assert tf_card.device.type == "cuda"
+    assert torch.allclose(tf_card.cpu(), tf_host, rtol=0, atol=2e-4)
+    imgs = np.stack([img for _, img in classify_mix if img.shape[0] < img.shape[1]])
+    card = clip.ClipZeroShot(sd, tf_host.numpy()).predict_batch(imgs)
+    host = clip.ClipZeroShot(sd, tf_host.numpy(), device="cpu").predict_batch(imgs)
+    assert card.device.type == "cuda"
+    assert torch.allclose(card.cpu(), host, rtol=0, atol=1e-4)
+    assert torch.equal(card.argmax(-1).cpu(), host.argmax(-1))
+    crop_card = clip.preprocess_crop_u8(torch.from_numpy(imgs).to(cuda_device))
+    assert torch.equal(crop_card.cpu(), clip.preprocess_crop_u8(torch.from_numpy(imgs)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["nightscape", "landscape", "face", "document"])
+def test_routes_on_card_equal_host(cuda_device, classify_mix, label):
+    """Each route on the mix's image of its kind: the night_rgb tolerance
+    for images (3 levels on < 0.1%), the binary page different on < 0.2%."""
+    from tpuimage_torch.classify import router
+    img = next(img for kind, img in classify_mix if kind == label)
+    card = router.enhance_for_label(label, img)                # an array: on the card
+    host = router.enhance_for_label(label, img, device="cpu")
+    assert card.device.type == "cuda" and card.dtype == torch.uint8
+    if label == "document":
+        assert card.shape == host.shape
+        assert float((card.cpu() != host).float().mean()) < 0.002
+    else:
+        assert card.shape == img.shape
+        _landscape_within(card, host, label)

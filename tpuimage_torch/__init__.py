@@ -8,9 +8,13 @@ find:
   ops/        the op layer on (..., H, W) tensors with leading batch dims;
               ``ops.kernels`` builds and binds the hand-written CUDA
               kernels in ``csrc/``
-  pipelines/  DocScanner's serving path (``pipelines.docscan.scan_batch``)
-  convert     the state carried across from tpuimage (config + tables)
-  synth       seeded numpy generator of document photos
+  pipelines/  DocScanner, night, morph_seq, landscape and face
+  detect/     the host's contours and Haar cascades (``native/`` in C++)
+  classify/   the heuristic scene classifiers, CLIP ViT-B/32 zero-shot
+              and the label router over the four enhancement pipelines
+  convert     the state carried across from tpuimage (config, tables,
+              CLIP weights)
+  synth       seeded numpy generators of test images and CLIP weights
 
 The package imports ``torch`` and never ``jax``. On a CPU tensor every
 kernel wrapper takes its plain PyTorch version; on a CUDA tensor it

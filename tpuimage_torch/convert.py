@@ -5,7 +5,8 @@ static tables (the Q8 Gaussian taps, the f32 adaptive-threshold taps and
 its integer offset, the Hough cos/sin tables, the structuring elements
 and the preprocess's bilateral taps and weights); the night paths' is
 the Lab tables and CLAHE's blend matrices. The tables are built from
-numpy exactly as tpuimage builds them.
+numpy exactly as tpuimage builds them. The CLIP classifier's weights come
+across from tpuimage's Flax parameters (``clip_params_from_tpuimage``).
 """
 from __future__ import annotations
 
@@ -87,3 +88,55 @@ def night_tables(shape=(853, 1280), tiles=(8, 8)) -> dict:
         "clahe_R": clahe_blend_matrix(h, th, tiles_y),
         "clahe_C": clahe_blend_matrix(w, tw, tiles_x).T,
     }
+
+
+def _clip_block(p: dict, prefix: str) -> dict:
+    """One Flax ``_Block``'s parameters -> open_clip's keys under ``prefix``:
+    a ``Dense`` kernel is the torch weight transposed."""
+    sd = {f"{prefix}.attn.in_proj_weight": p["attn"]["in_proj"]["kernel"].T,
+          f"{prefix}.attn.in_proj_bias": p["attn"]["in_proj"]["bias"]}
+    for name, dense in (("attn.out_proj", p["attn"]["out_proj"]), ("mlp.c_fc", p["mlp_fc"]),
+                        ("mlp.c_proj", p["mlp_proj"])):
+        sd[f"{prefix}.{name}.weight"] = dense["kernel"].T
+        sd[f"{prefix}.{name}.bias"] = dense["bias"]
+    for ln in ("ln_1", "ln_2"):
+        sd.update(_clip_ln(p[ln], f"{prefix}.{ln}"))
+    return sd
+
+
+def _clip_ln(p: dict, prefix: str) -> dict:
+    return {f"{prefix}.weight": p["scale"], f"{prefix}.bias": p["bias"]}
+
+
+def clip_params_from_tpuimage(params) -> dict:
+    """tpuimage's CLIP parameters ``{"vision": ..., "text": ...}`` (Flax
+    trees; leaves numpy or jax arrays) -> the open_clip-layout state dict
+    the port's towers load, float32 numpy.
+    Undoes ``convert_openclip_state_dict``: Dense kernels transposed back,
+    the NHWC patch kernel (kh, kw, C, D) -> (D, C, kh, kw), LayerNorm
+    ``scale`` -> ``weight``."""
+    v, t = _as_numpy_tree(params["vision"]), _as_numpy_tree(params["text"])
+    sd = {"visual.conv1.weight": v["patch_embed"]["kernel"].transpose(3, 2, 0, 1),
+          "token_embedding.weight": t["token_embedding"]["embedding"]}
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        sd[f"visual.{name}"] = v[name]
+    for name in ("positional_embedding", "text_projection"):
+        sd[name] = t[name]
+    for ln in ("ln_pre", "ln_post"):
+        sd.update(_clip_ln(v[ln], f"visual.{ln}"))
+    sd.update(_clip_ln(t["ln_final"], "ln_final"))
+    for i in range(_n_blocks(v)):
+        sd.update(_clip_block(v[f"block_{i}"], f"visual.transformer.resblocks.{i}"))
+    for i in range(_n_blocks(t)):
+        sd.update(_clip_block(t[f"block_{i}"], f"transformer.resblocks.{i}"))
+    return {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in sd.items()}
+
+
+def _as_numpy_tree(tree):
+    if hasattr(tree, "items"):
+        return {k: _as_numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def _n_blocks(tower: dict) -> int:
+    return sum(1 for k in tower if k.startswith("block_"))

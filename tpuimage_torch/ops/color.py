@@ -1,5 +1,5 @@
 """Colour conversions bit-matching OpenCV's 8-bit paths (counterpart of
-``tpuimage.ops.color``): RGB -> gray, RGB -> YCrCb (Q14 fixed point), RGB
+``tpuimage.ops.color``): RGB <-> gray, RGB -> YCrCb (Q14 fixed point), RGB
 -> Lab (fixed point, the ``rgb_to_lab`` kernel on the card), Lab -> RGB
 (float) and RGB <-> HSV (8-bit, H in [0, 180))."""
 from __future__ import annotations
@@ -20,6 +20,11 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) uint8 RGB -> (..., H, W) uint8 gray."""
     r, g, b = i32(img[..., 0]), i32(img[..., 1]), i32(img[..., 2])
     return descale(r * _R2Y15 + g * _G2Y15 + b * _B2Y15, 15).to(torch.uint8)
+
+
+def gray_to_rgb(gray: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) uint8 gray -> (..., H, W, 3), the value in each channel."""
+    return torch.stack([gray, gray, gray], dim=-1)
 
 
 # ---------------------------------------------------------------------------

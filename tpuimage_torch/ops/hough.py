@@ -135,6 +135,17 @@ def hough_fold_median_angle(edges: torch.Tensor, threshold: int,
     return fold_median_from_acc(acc, threshold, theta_bins), overflow
 
 
+def hough_line_count(edges: torch.Tensor, threshold: int, rho: float = 1.0,
+                     theta_bins: int = 180, max_lines: int = 64, max_edges: int = 0):
+    """min(number of Hough peaks above threshold, max_lines) of each (B, H,
+    W) edge map -> ((B,) int32 counts, (B,) bool edge-budget overflow): the
+    count of ``hough_lines``' valid lines, without ordering the peaks."""
+    acc, overflow = hough_accumulator(edges, rho=rho, theta_bins=theta_bins,
+                                      max_edges=max_edges)
+    n = _is_peak(acc, threshold).sum(dim=(-2, -1), dtype=torch.int32)
+    return torch.clamp(n, max=max_lines), overflow
+
+
 def hough_lines(edges: torch.Tensor, threshold: int, rho: float = 1.0,
                 theta_bins: int = 180, max_lines: int = 64, max_edges: int = 0):
     """cv2.HoughLines analog over (B, H, W) edge maps -> ((B, max_lines, 2)

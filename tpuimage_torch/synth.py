@@ -1,7 +1,8 @@
 """Seeded numpy generators of test images (no PIL, no cv2, no torch):
 document photos and pages for DocScanner and morph_seq, night scenes for
-the night pipelines, daylight landscapes for the landscape pipeline and
-noisy portraits for the face pipeline.
+the night pipelines, daylight landscapes for the landscape pipeline,
+noisy portraits for the face pipeline and a mix of the four for the
+classifier; also the classifier's random CLIP weights and BPE merges.
 
 ``document_photo`` draws a textured dark background and, optionally, a
 bright page quad under mild perspective carrying rows of dark text
@@ -320,6 +321,123 @@ def portrait(seed: int, height: int = 1280, width: int = 853, noise: str = "gaus
         out[hit & salt] = 255
         out[hit & ~salt] = 0
     return out, boxes
+
+
+def face_photo(seed: int, height: int = 1280, width: int = 853) -> np.ndarray:
+    """A (height, width, 3) uint8 front-facing head and shoulders that the
+    frontal-face Haar cascade finds (``portrait``'s face, with its bright
+    eye whites, it does not): a skin-toned oval face (inside the face
+    pipeline's YCrCb box) with shaded eye sockets under dark brows, a
+    lighter nose ridge and a mouth, hair, a neck, shoulders, a cool
+    background and N(0, 4) noise; every edge a ramp a few pixels wide."""
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:height, 0:width].astype(np.float64)
+    soft = max(3.0, 0.006 * width)
+    rgb = np.array([120.0, 140.0, 160.0]) * (1.0 - 0.2 * v / height)[..., None]
+    cx, cy = width * rng.uniform(0.47, 0.53), height * rng.uniform(0.43, 0.47)
+    ax, ay = width * 0.30, height * 0.27
+    rgb = _paint(rgb, np.maximum(cy + 1.25 * ay - v, np.abs(u - cx) - width * 0.42),
+                 (50.0, 60.0, 100.0), soft)                                  # shoulders
+    rgb = _paint(rgb, np.maximum(_ellipse_dist(u, v, cx, cy - 0.1 * ay, 1.1 * ax, 1.1 * ay),
+                                 v - (cy - 0.55 * ay)), (50.0, 35.0, 25.0), soft)   # hair
+    rgb = _paint(rgb, np.maximum(np.abs(u - cx) - 0.4 * ax,
+                                 np.maximum(cy - v, v - (cy + 1.3 * ay))),
+                 (205.0, 150.0, 120.0), soft)                                # neck
+    rgb = _paint(rgb, np.maximum(_ellipse_dist(u, v, cx, cy, ax, ay), cy - 0.55 * ay - v),
+                 (225.0, 170.0, 140.0), soft)                                # face
+    for side in (-1, 1):
+        ex, ey = cx + side * 0.4 * ax, cy - 0.15 * ay
+        rgb = _paint(rgb, _ellipse_dist(u, v, ex, ey, 0.3 * ax, 0.13 * ay),
+                     (70.0, 45.0, 40.0), soft)                               # eye socket
+        rgb = _paint(rgb, _ellipse_dist(u, v, ex, ey - 0.22 * ay, 0.3 * ax, 0.04 * ay),
+                     (45.0, 30.0, 25.0), soft)                               # brow
+    rgb = _paint(rgb, np.maximum(np.abs(u - cx) - 0.08 * ax, np.abs(v - (cy + 0.1 * ay)) - 0.2 * ay),
+                 (240.0, 195.0, 170.0), soft)                                # nose ridge
+    rgb = _paint(rgb, _ellipse_dist(u, v, cx, cy + 0.55 * ay, 0.35 * ax, 0.06 * ay),
+                 (150.0, 70.0, 75.0), soft)                                  # mouth
+    rgb = rgb + rng.normal(0.0, 4.0, size=rgb.shape)
+    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+SCENE_KINDS = ("nightscape", "landscape", "face", "document")
+
+
+def scene_mix(seed: int, height: int = 853, width: int = 1280):
+    """The classifier's mix: 8 (kind, (H, W, 3) uint8 image) pairs, two of
+    each of ``SCENE_KINDS``: night and landscape scenes of height x width,
+    and portraits and document photos held upright (width x height), so
+    that a batch holds two shape groups. The first portrait is a
+    ``face_photo``, which the face cascade finds; the second a
+    ``portrait``, whose eyes the eye cascade finds and whose face it does
+    not."""
+    mix = []
+    for i in range(2):
+        s = seed + 10 * i
+        face = face_photo(s + 2, width, height) if i == 0 else portrait(s + 2, width, height)[0]
+        mix += [("nightscape", night_scene(s, height, width)),
+                ("landscape", landscape_scene(s + 1, height, width)),
+                ("face", face),
+                ("document", document_photo(s + 3, width, height))]
+    return mix
+
+
+def _clip_rand(rng: np.random.Generator, *shape, scale: float = 0.02) -> np.ndarray:
+    return rng.standard_normal(shape).astype(np.float32) * scale
+
+
+def clip_state_dict(seed: int = 7) -> dict:
+    """A random open_clip-layout state dict at ViT-B/32's real shapes
+    (vision 768 wide, 12 layers, patch 32, out 512; text vocab 49408,
+    context 77, 512 wide, 12 layers; ~151M float32 values), drawn in the
+    order of tpuimage's tests/test_clip_numerics.py ``make_state_dict``,
+    so the same seed gives the same arrays."""
+    rng = np.random.default_rng(seed)
+    sd = {"visual.conv1.weight": _clip_rand(rng, 768, 3, 32, 32),
+          "visual.class_embedding": _clip_rand(rng, 768),
+          "visual.positional_embedding": _clip_rand(rng, 50, 768)}
+    for p, w in (("visual.ln_pre", 768), ("visual.ln_post", 768), ("ln_final", 512)):
+        sd[p + ".weight"] = 1.0 + _clip_rand(rng, w)
+        sd[p + ".bias"] = _clip_rand(rng, w)
+    sd["visual.proj"] = _clip_rand(rng, 768, 512)
+    sd["token_embedding.weight"] = _clip_rand(rng, 49408, 512)
+    sd["positional_embedding"] = _clip_rand(rng, 77, 512)
+    sd["text_projection"] = _clip_rand(rng, 512, 512)
+
+    def add_block(prefix, width):
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{prefix}.{ln}.weight"] = 1.0 + _clip_rand(rng, width)
+            sd[f"{prefix}.{ln}.bias"] = _clip_rand(rng, width)
+        sd[f"{prefix}.attn.in_proj_weight"] = _clip_rand(rng, 3 * width, width)
+        sd[f"{prefix}.attn.in_proj_bias"] = _clip_rand(rng, 3 * width)
+        sd[f"{prefix}.attn.out_proj.weight"] = _clip_rand(rng, width, width)
+        sd[f"{prefix}.attn.out_proj.bias"] = _clip_rand(rng, width)
+        sd[f"{prefix}.mlp.c_fc.weight"] = _clip_rand(rng, 4 * width, width)
+        sd[f"{prefix}.mlp.c_fc.bias"] = _clip_rand(rng, 4 * width)
+        sd[f"{prefix}.mlp.c_proj.weight"] = _clip_rand(rng, width, 4 * width)
+        sd[f"{prefix}.mlp.c_proj.bias"] = _clip_rand(rng, width)
+
+    for i in range(12):
+        add_block(f"visual.transformer.resblocks.{i}", 768)
+        add_block(f"transformer.resblocks.{i}", 512)
+    return sd
+
+
+def prompt_merges():
+    """A BPE merges list that merges every distinct word of the four
+    classifier prompts whole, left to right, with ``</w>`` word endings:
+    the structure of the real bpe_simple_vocab_16e6 rules, which are not
+    in the repository. (Reads the prompts from ``classify.clip``.)"""
+    from tpuimage_torch.classify.clip import PROMPTS
+    words = sorted({w for p in PROMPTS.values() for w in p.lower().split()})
+    merges = []
+    for wd in words:
+        if len(wd) < 2:
+            continue
+        syms = list(wd[:-1]) + [wd[-1] + "</w>"]
+        while len(syms) > 1:
+            merges.append((syms[0], syms[1]))
+            syms = [syms[0] + syms[1]] + syms[2:]
+    return merges
 
 
 # ---------------------------------------------------------------------------
