@@ -130,7 +130,25 @@ Phases (any failure raises and the exit code is non-zero):
    the routes taken, counted); card against host on all 8: labels and
    probabilities equal, CLIP probabilities within 1e-4 with the argmax
    equal, each route within its card-vs-host contract (3 levels on <
-   0.1%; the binary page < 0.2% of pixels).
+   0.1%; the binary page < 0.2% of pixels);
+13. the notebook's pipelines and presets: its four kernels at its
+   shapes first, exact against their plain versions and timed
+   (gaussian_blur_u8 k 3 channel-last on 8 ``synth.shadowed_scene``s of
+   1280x853, k 5 on the gray of a 1200x1600 document photo, sigma 1 on a
+   1200x1600 ``synth.white_page``; rgb_to_lab on the scenes; hist256 on
+   their CLAHE tiles and their L planes; clahe_apply at clip 2, 3 and
+   4); then, each with the counters reset just before and read just
+   after, ms a call, MP/s, the peak device memory and a profiled window:
+   ``enhance_shadow_batch`` for each of the four presets on the 8 scenes,
+   ``apply_categorization_preset`` with every stage on (each highlight
+   curve) and ``apply_enhancement_preset`` (equalisation; CLAHE with sky
+   protection) on the 8 scenes, modules 1 and 3-6 on one scene (module 2,
+   the NLM, timed once), the document restoration's device core on the
+   page (``_enhance_core``, Richardson-Lucy at 15 iterations,
+   ``_segment_and_final``); ``auto_categorize`` on the scenes, a night
+   scene and the page; card against host for every output (the presets'
+   and appliers' first two scenes, DOCUMENT's first; the NLM's outputs
+   within NLM_TOL, each later stage on the card's previous one equal).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record (all twelve kernels, each launched on
@@ -159,6 +177,7 @@ NIGHT = (853, 1280)       # nightview.png, height x width
 MORPH = (963, 1280)       # sample.jpg, height x width
 PHONE_PHOTO = (4032, 3024)  # a 12 MP phone photo, height x width
 NIGHT_RGB_TOL = (3, 0.001)  # card vs host night_rgb: max levels, share of values
+NLM_TOL = (2, 1e-4)         # card vs host NLM (its f32 exp): max levels, share of values
 # the card's peaks for the bound (the H100 SXM data sheet, dense): HBM
 # bytes/s; f32 operations/s outside the tensor cores, the rate the integer
 # and f32 work of the kernels is counted at; and int8 operations/s on the
@@ -662,6 +681,262 @@ def _conv_blur_u8(padded: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     acc = torch.nn.functional.conv2d(v, taps.view(1, 1, 1, k))
     return torch.clamp(torch.floor((acc + 32768.0) * (1.0 / 65536.0)), 0, 255
                        ).to(torch.uint8)[:, 0]
+
+
+def _path_run(name: str, fn, needed, launches: dict, n_px: int, reps: int = 3):
+    """One path on the card: a warm call, one counted call (its launches
+    added to ``launches``), then ms a call (CUDA events, median of
+    ``reps``), MP/s, the peak device memory and a profiled window (the
+    busy share). Returns the counted call's output."""
+    fn()
+    torch.cuda.synchronize()
+    from tpuimage_torch.ops import kernels
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    for k_, v in _launched(name, kernels.launch_counts(), needed).items():
+        launches[k_] += v
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    ms = _cuda_ms(fn, reps=reps, calls=1)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"{name}: {ms:.3f} ms a call = {n_px / 1e3 / ms:.1f} MP/s (CUDA events, warm, median "
+          f"of {reps}, input on the card); device memory: peak {peak_mb - base_mb:.1f} MiB "
+          f"above the {base_mb:.1f} MiB held before the calls")
+    _print_profile(name, ms, fn)
+    return out
+
+
+def _card_equals_host(what: str, card: torch.Tensor, host: torch.Tensor,
+                      tol=(0, 0.0)) -> None:
+    """A card output against the same call on the host: at most ``tol``
+    (levels, share of values); (0, 0) is equality."""
+    card = card.cpu()
+    if card.shape != host.shape or card.dtype != host.dtype:
+        raise AssertionError(f"{what}: card {tuple(card.shape)} {card.dtype} vs host "
+                             f"{tuple(host.shape)} {host.dtype}")
+    if card.is_floating_point():
+        err = float((card - host).abs().max()) if card.numel() else 0.0
+        if err > tol[0]:
+            raise AssertionError(f"{what}: card vs host max |diff| {err}")
+        print(f"card vs host, {what}: max |diff| {err:.3g} (limit {tol[0]})")
+        return
+    diff = (card.to(torch.int32) - host.to(torch.int32)).abs()
+    n_diff = int((diff > 0).sum())
+    worst = int(diff.max()) if diff.numel() else 0
+    if worst > tol[0] or (n_diff > 0 and n_diff >= tol[1] * diff.numel()):
+        raise AssertionError(f"{what}: {n_diff} of {diff.numel()} values differ, by up to {worst}")
+    print(f"card vs host, {what}: {n_diff} of {diff.numel()} values differ, max |diff| {worst}")
+
+
+def _notebook_phase(dev, tables, records: dict, launches: dict, cudnn_tf32: bool) -> None:
+    """Phase 13: the notebook's shadow pipeline, the preset appliers,
+    modules 1-6 and the document restoration's device core on the card
+    (the module docstring, item 13)."""
+    from tpuimage_torch import synth
+    from tpuimage_torch.core.borders import pad2d
+    from tpuimage_torch.ops import color, histogram, kernels, restore
+    from tpuimage_torch.ops.filters import gaussian_kernel_q8
+    from tpuimage_torch.pipelines import docrestore, modules, shadow
+    from tpuimage_torch.presets import apply as preset_apply
+    from tpuimage_torch.presets.loader import CategorizationPreset, EnhancementPreset
+
+    scenes = np.stack([synth.shadowed_scene(1300 + i, *NIGHT) for i in range(N_REQUESTS)])
+    scenes_d = torch.from_numpy(scenes).to(dev)
+    n_sc = N_REQUESTS * NIGHT[0] * NIGHT[1]
+    doc = synth.white_page(1390, *PHOTO)                  # the 1200x1600 document
+    doc_d = torch.from_numpy(doc).to(dev)
+    doc_photo_d = torch.from_numpy(synth.document_photo(1391, *PHOTO)).to(dev)
+
+    # 13.1 the four kernels at the slice's shapes, each exact against its plain version
+    torch.backends.cudnn.allow_tf32 = False
+    blur_inputs = (
+        ("shadow_k3", f"k=3 channel-last, the unsharp's blur of the {N_REQUESTS} shadowed scenes "
+         f"{NIGHT[1]}x{NIGHT[0]} ({3 * N_REQUESTS} planes)", scenes_d.movedim(-1, -3).reshape(-1, *NIGHT), 3, 0.0),
+        ("persp_k5", "k=5 on the gray of a 1200x1600 document photo (the automatic "
+         "perspective's blur)", color.rgb_to_gray(doc_photo_d)[None], 5, 0.0),
+        ("doc_k7", "sigma 1 (k=7) channel-last on the 1200x1600 document (the docrestore "
+         "unsharp's blur, 3 planes)", doc_d.movedim(-1, -3), 7, 1.0))
+    for key, what, planes, k, sigma in blur_inputs:
+        planes = planes.contiguous()
+        n_p = planes.numel()
+        padded = pad2d(planes.to(torch.float32), k // 2, k // 2, k // 2, k // 2)[:, None]
+        taps = torch.from_numpy(gaussian_kernel_q8(k, sigma).astype(np.float32)).to(dev)
+        rec = _compare(f"gaussian_blur_u8 notebook {what}; library: two cudnn conv2d 1-D passes "
+                       "+ rounding",
+                       lambda: kernels.gaussian_blur_u8(planes, k, sigma),
+                       lambda: kernels.gaussian_blur_u8_ref(planes, k, sigma),
+                       _bound(2 * n_p + 4 * k, 2 * 2 * k * n_p, INT8_TENSOR_OPS_PER_S),
+                       [lambda: _conv_blur_u8(padded, taps)])
+        _sub_record(records["gaussian_blur_u8"], f"notebook_{key}", rec)
+        del padded
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    rec = _compare(f"rgb_to_lab notebook ({N_REQUESTS} shadowed scenes {NIGHT[1]}x{NIGHT[0]})",
+                   lambda: kernels.rgb_to_lab(scenes_d, tables),
+                   lambda: kernels.rgb_to_lab_ref(scenes_d, tables),
+                   _bound(6 * n_sc + 4 * tables.numel(), 47 * n_sc))
+    _sub_record(records["rgb_to_lab"], "notebook", rec)
+    lum = color.rgb_to_lab(scenes_d)[..., 0].contiguous()
+    tiles, th, tw = histogram.clahe_tiles(lum, 8, 8)
+    offset_tiles = (tiles.to(torch.int64) + 256 * torch.arange(tiles.shape[0], device=dev)[:, None]
+                    ).reshape(-1)
+    rec = _compare(f"hist256 notebook CLAHE tiles ({tiles.shape[0]} tiles of the scenes' L)",
+                   lambda: kernels.hist256_batch(tiles), lambda: kernels.hist256_batch_ref(tiles),
+                   _hist256_bound(tiles),
+                   [lambda: torch.bincount(offset_tiles, minlength=tiles.shape[0] * 256
+                                           ).view(tiles.shape[0], 256)])
+    _sub_record(records["hist256"], "notebook_clahe", rec)
+    rows = lum.reshape(N_REQUESTS, -1)
+    offset_rows = (rows.to(torch.int64) + 256 * torch.arange(N_REQUESTS, device=dev)[:, None]
+                   ).reshape(-1)
+    rec = _compare(f"hist256 notebook equalize_hist ({N_REQUESTS} L planes {NIGHT[1]}x{NIGHT[0]})",
+                   lambda: kernels.hist256_batch(rows), lambda: kernels.hist256_batch_ref(rows),
+                   _hist256_bound(rows),
+                   [lambda: torch.bincount(offset_rows, minlength=N_REQUESTS * 256
+                                           ).view(N_REQUESTS, 256)])
+    _sub_record(records["hist256"], "notebook_equalize", rec)
+    del offset_tiles, offset_rows
+    counts = kernels.hist256_batch(tiles)
+    R, C = histogram.blend_matrices_on(NIGHT[0], NIGHT[1], th, tw, 8, 8, dev)
+    for clip in (2, 3, 4):
+        luts = histogram.tile_luts_from_counts(counts, clip, th * tw).reshape(-1, 8, 8, 256)
+        rec = _compare(f"clahe_apply notebook clip {clip} ({N_REQUESTS} L planes "
+                       f"{NIGHT[1]}x{NIGHT[0]}, 8x8 tiles)",
+                       lambda: kernels.clahe_apply(lum, luts, R, C),
+                       lambda: kernels.clahe_apply_ref(lum, luts, R, C),
+                       _bound(2 * lum.numel() + luts.numel() + 4 * (R.numel() + C.numel()),
+                              9 * lum.numel()))
+        _sub_record(records["clahe_apply"], f"notebook_clip{clip}", rec)
+    del lum, tiles, rows, counts
+
+    # 13.2 the shadow pipeline, each preset on the 8 scenes; the categories
+    shadow_card = {}
+    for name, preset in shadow.PRESETS.items():
+        needed = ("rgb_to_lab", "hist256", "clahe_apply") if preset.use_clahe else ()
+        needed += ("gaussian_blur_u8",) if preset.use_unsharp else ()
+        final, mask = _path_run(f"enhance_shadow_batch {name} ({N_REQUESTS} scenes "
+                                f"{NIGHT[1]}x{NIGHT[0]})",
+                                lambda: shadow.enhance_shadow_batch(scenes_d, preset), needed,
+                                launches, n_sc)
+        covered = float((mask > 0.5).float().mean())
+        if final.shape != scenes_d.shape or not 0.02 < covered < 0.98 or \
+                not bool((final != scenes_d).any()):
+            raise AssertionError(f"shadow {name}: {tuple(final.shape)}, mask covers {covered:.3f}")
+        print(f"enhance_shadow_batch {name}: the mask covers {covered:.3f} of the scenes")
+        shadow_card[name] = (final[:2].cpu(), mask[:2].cpu())
+        del final, mask
+    night_scene = synth.night_scene(1395, *NIGHT)
+    labels = [shadow.auto_categorize(scenes_d[i]) for i in range(N_REQUESTS)]
+    labels += [shadow.auto_categorize(night_scene), shadow.auto_categorize(doc)]
+    print(f"auto_categorize: the {N_REQUESTS} scenes {labels[:-2]}, a night scene {labels[-2]}, "
+          f"the document {labels[-1]}")
+    if labels[-2] != "NIGHT" or labels[-1] != "DOCUMENT" or "GENERAL" not in labels[:-2]:
+        raise AssertionError(f"auto_categorize: {labels}")
+    ms = _wall_ms(lambda: [shadow.auto_categorize(scenes_d[i]) for i in range(N_REQUESTS)])
+    print(f"auto_categorize: {ms / N_REQUESTS:.3f} ms an image (host clock, the cues fetched)")
+
+    # 13.3 the preset appliers on the scenes
+    every = CategorizationPreset(
+        name="every", group="g", brightness_mode="gamma", brightness_gamma=0.9,
+        linear_boost_beta=4.0, contrast_mode="clahe", clahe_clip=2.0, saturation_mult=1.2,
+        saturation_cap=0.5, gray_world=True, chroma_boost_cb=1.1, chroma_boost_cr=1.05,
+        highlight_compression="sqrt", local_contrast=True, lc_radius=2.0, lc_amount=0.6,
+        lc_threshold=1.0, invert=True)
+    cat_fn, enh_fn = preset_apply.apply_categorization_preset, preset_apply.apply_enhancement_preset
+    appliers = [(f"apply_categorization_preset every stage, {curve} curve", cat_fn,
+                 dataclasses.replace(every, highlight_compression=curve),
+                 ("rgb_to_lab", "hist256", "clahe_apply"))
+                for curve in ("sqrt", "log", "mild_sqrt")]
+    appliers += [("apply_enhancement_preset equalisation", enh_fn,
+                  EnhancementPreset(name="eq", group="g", contrast_alpha=1.1,
+                                    hist_method="equalization"), ("rgb_to_lab", "hist256")),
+                 ("apply_enhancement_preset CLAHE with sky protection", enh_fn,
+                  EnhancementPreset(name="sky", group="g", hist_method="clahe", clahe_clip=2.2,
+                                    sky_protection_power=2.0, blend_strength=0.55),
+                  ("rgb_to_lab", "hist256", "clahe_apply"))]
+    applier_card = {}
+    for what, fn, preset, needed in appliers:
+        out = _path_run(f"{what} ({N_REQUESTS} scenes)", lambda fn=fn, p=preset: fn(scenes_d, p),
+                        needed, launches, n_sc)
+        applier_card[what] = out[:2].cpu()
+
+    # 13.4 modules 1-6 on one scene
+    one = scenes_d[0]
+    module_calls = (
+        ("module1_enhance", lambda x, **kw: modules.module1_enhance(x, **kw),
+         ("rgb_to_lab", "hist256", "clahe_apply", "gaussian_blur_u8")),
+        ("module3_transform (rotate 12, scale 0.8, translate (25, -15))",
+         lambda x, **kw: modules.module3_transform(x, 12.0, 0.8, (25, -15), **kw), ()),
+        ("module4_segment", lambda x, **kw: modules.module4_segment(x, **kw), ()),
+        ("module5_color YCrCb", lambda x, **kw: modules.module5_color(x, "YCRCB", **kw),
+         ("rgb_to_lab", "hist256", "clahe_apply")),
+        ("module6_features", lambda x, **kw: modules.module6_features(x, **kw)["edge_map"], ()))
+    module_card = {}
+    for what, fn, needed in module_calls:
+        module_card[what] = _path_run(f"{what} (1 scene {NIGHT[1]}x{NIGHT[0]})",
+                                      lambda fn=fn: fn(one), needed, launches,
+                                      NIGHT[0] * NIGHT[1]).cpu()
+    feats = modules.module6_features(one)
+    print("module6_features: " + ", ".join(f"{k} {float(v):.4f}" for k, v in feats.items()
+                                           if k != "edge_map"))
+    ms = _cuda_ms(lambda: modules.module2_restore(one), reps=1, calls=1)
+    module_card["module2_restore"] = modules.module2_restore(one).cpu()
+    print(f"module2_restore (median 3, NLM h 10) on 1 scene {NIGHT[1]}x{NIGHT[0]}: {ms:.1f} ms "
+          "(one warm call)")
+
+    # 13.5 the document restoration's device core on the 1200x1600 document
+    n_doc = PHOTO[0] * PHOTO[1]
+    den, cl, sharp = _path_run(f"docrestore _enhance_core (1 document {PHOTO[1]}x{PHOTO[0]})",
+                               lambda: docrestore._enhance_core(doc_d),
+                               ("rgb_to_lab", "hist256", "clahe_apply", "gaussian_blur_u8"),
+                               launches, n_doc, reps=1)
+    gray = color.rgb_to_gray(sharp)
+    deblurred = _path_run(f"richardson_lucy_gray 15 iterations (1 gray {PHOTO[1]}x{PHOTO[0]})",
+                          lambda: restore.richardson_lucy_gray(gray, 15), (), launches, n_doc)
+    seg, final, doc_edges = _path_run(f"docrestore _segment_and_final (1 gray {PHOTO[1]}x{PHOTO[0]})",
+                                      lambda: docrestore._segment_and_final(deblurred), (),
+                                      launches, n_doc)
+    text = float((seg < 128).float().mean())
+    print(f"docrestore: text covers {text:.3f} of the page, {int((doc_edges > 0).sum())} edge "
+          "pixels")
+    if not 0.005 < text < 0.5:
+        raise AssertionError(f"docrestore: the segmentation marks {text:.3f} as text")
+
+    # 13.6 card against host: the same calls with device="cpu" (the presets'
+    # and appliers' first two scenes, DOCUMENT's first, whose 641-tap Retinex
+    # is ~12 s a scene on the host; module 2 and the core at their full size)
+    for name, (final_c, mask_c) in shadow_card.items():
+        k = 1 if name == "DOCUMENT" else 2
+        final_h, mask_h = shadow.enhance_shadow_batch(scenes[:k], shadow.PRESETS[name],
+                                                      device="cpu")
+        _card_equals_host(f"enhance_shadow_batch {name} mask", mask_c[:k], mask_h)
+        tol = (0, 0.0) if name in ("DOCUMENT", "NIGHT") else NIGHT_RGB_TOL
+        _card_equals_host(f"enhance_shadow_batch {name}", final_c[:k], final_h, tol)
+    for what, fn, preset, _ in appliers:
+        _card_equals_host(what, applier_card[what], fn(scenes[:2], preset, device="cpu"),
+                          NIGHT_RGB_TOL)
+    one_h = scenes[0]
+    for what, fn, _ in module_calls:
+        _card_equals_host(what, module_card[what], fn(one_h, device="cpu"), NIGHT_RGB_TOL)
+    _card_equals_host("module2_restore (its NLM's f32 exp)", module_card["module2_restore"],
+                      modules.module2_restore(one_h, device="cpu"), NLM_TOL)
+    feats_h = modules.module6_features(one_h, device="cpu")
+    for k_, v in feats.items():
+        if k_ != "edge_map":
+            _card_equals_host(f"module6_features {k_}", v, feats_h[k_], (1e-3 * abs(float(v)), 0))
+    # the core stage by stage: the NLM (its f32 exp) within NLM_TOL, each later
+    # stage on the card's previous one equal
+    _card_equals_host("docrestore _denoise (its NLM's f32 exp)", den,
+                      docrestore._denoise(torch.from_numpy(doc)), NLM_TOL)
+    _card_equals_host("docrestore _clahe_l", cl, docrestore._clahe_l(den.cpu()))
+    _card_equals_host("docrestore _stretch_sharpen", sharp,
+                      docrestore._stretch_sharpen(cl.cpu()))
+    deblurred_h = restore.richardson_lucy_gray(gray.cpu(), 15)
+    _card_equals_host("richardson_lucy_gray", deblurred, deblurred_h, (1, 0.001))
+    for what, c, h in zip(("seg", "final", "edges"), (seg, final, doc_edges),
+                          docrestore._segment_and_final(deblurred.cpu())):
+        _card_equals_host(f"docrestore _segment_and_final {what}", c, h)
+    del scenes_d, doc_d, doc_photo_d, den, cl, sharp, gray, deblurred, seg, final, doc_edges
 
 
 def main() -> int:
@@ -1852,6 +2127,11 @@ def main() -> int:
         print(f"card vs host, route {kind}: {n_diff} of {diff.numel()} values differ, max "
               f"|diff| {int(diff.max())}")
     del clip_sd, model, model_host, routed, flow
+
+    # --- 13. the notebook pipelines and presets ---------------------------------
+    print(f"[phase 13 at {time.perf_counter() - t_start:.1f} s]")
+    _notebook_phase(dev, tables, records, launches, cudnn_tf32)
+    print(f"[phases done at {time.perf_counter() - t_start:.1f} s]")
 
     torch.cuda.synchronize()
     jax_side = [m for m in sys.modules if m.split(".")[0] in ("jax", "tpuimage")]

@@ -1195,3 +1195,111 @@ def test_routes_on_card_equal_host(cuda_device, classify_mix, label):
     else:
         assert card.shape == img.shape
         _landscape_within(card, host, label)
+
+
+# ---------------------------------------------------------------------------
+# the notebook pipelines and presets: their four kernels at the slice's
+# shapes, and the entry points card against host
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def shadow_scenes():
+    return np.stack([synth.shadowed_scene(1300 + i, 853, 1280) for i in range(2)])
+
+
+@pytest.mark.cuda
+def test_notebook_kernels_at_their_shapes(cuda_device, shadow_scenes):
+    """The unsharp's k 3 channel-last blur of two scenes of 1280x853, k 5 on
+    a 1200x1600 gray, sigma 1 (k 7) on a 1200x1600 page's planes,
+    rgb_to_lab, hist256 on the CLAHE tiles and the whole L planes, and
+    clahe_apply at clip 2, 3 and 4: each equal to its plain version."""
+    from tpuimage_torch.ops.filters import gaussian_blur_u8
+    scenes = torch.from_numpy(shadow_scenes).to(cuda_device)
+    page = torch.from_numpy(synth.white_page(1390)).to(cuda_device)
+    for planes, k, sigma in ((scenes.movedim(-1, -3).reshape(-1, 853, 1280), 3, 0.0),
+                             (color.rgb_to_gray(page)[None], 5, 0.0),
+                             (page.movedim(-1, -3), 7, 1.0)):
+        planes = planes.contiguous()
+        assert torch.equal(kernels.gaussian_blur_u8(planes, k, sigma).cpu(),
+                           kernels.gaussian_blur_u8_ref(planes.cpu(), k, sigma))
+    assert torch.equal(gaussian_blur_u8(scenes, 3, channels_last=True).cpu(),
+                       gaussian_blur_u8(scenes.cpu(), 3, channels_last=True))
+    tables = color.lab_tables_on(cuda_device)
+    assert torch.equal(kernels.rgb_to_lab(scenes, tables).cpu(),
+                       kernels.rgb_to_lab_ref(scenes.cpu(), tables.cpu()))
+    lum = color.rgb_to_lab(scenes)[..., 0].contiguous()
+    tiles, th, tw = histogram.clahe_tiles(lum, 8, 8)
+    counts = kernels.hist256_batch(tiles)
+    assert torch.equal(counts.cpu(), kernels.hist256_batch_ref(tiles.cpu()))
+    rows = lum.reshape(2, -1)
+    assert torch.equal(kernels.hist256_batch(rows).cpu(), kernels.hist256_batch_ref(rows.cpu()))
+    R, C = histogram.blend_matrices_on(853, 1280, th, tw, 8, 8, cuda_device)
+    for clip in (2, 3, 4):
+        luts = histogram.tile_luts_from_counts(counts, clip, th * tw).reshape(-1, 8, 8, 256)
+        assert torch.equal(kernels.clahe_apply(lum, luts, R, C).cpu(),
+                           kernels.clahe_apply_ref(lum.cpu(), luts.cpu(), R.cpu(), C.cpu()))
+    assert torch.equal(histogram.equalize_hist(lum).cpu(), histogram.equalize_hist(lum.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["DOCUMENT", "NIGHT", "PORTRAIT", "GENERAL"])
+def test_enhance_shadow_batch_on_card_equals_host(cuda_device, name):
+    """Each preset on two scenes of 240x320 (DOCUMENT's 641-tap Retinex
+    reflects past them): the mask equal, DOCUMENT and NIGHT equal, the
+    presets with a CLAHE within the night_rgb tolerance (expected equal)."""
+    from tpuimage_torch.pipelines import shadow
+    xs = np.stack([synth.shadowed_scene(1310 + i, 240, 320) for i in range(2)])
+    kernels.reset_launch_counts()
+    final, mask = shadow.enhance_shadow_batch(xs, shadow.PRESETS[name])   # arrays: on the card
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if shadow.PRESETS[name].use_clahe:
+        assert counts["clahe_apply"] > 0 and counts["rgb_to_lab"] > 0, counts
+    final_h, mask_h = shadow.enhance_shadow_batch(xs, shadow.PRESETS[name], device="cpu")
+    assert final.device.type == "cuda"
+    assert torch.equal(mask.cpu(), mask_h)
+    if name in ("DOCUMENT", "NIGHT"):
+        assert torch.equal(final.cpu(), final_h)
+    else:
+        _landscape_within(final, final_h, name)
+
+
+@pytest.mark.cuda
+def test_notebook_modules_and_presets_on_card_equal_host(cuda_device):
+    """The appliers, modules 1, 3-6 and the docrestore core on small
+    inputs: card within the night_rgb tolerance of the host (measured
+    equal); the core stage by stage."""
+    from tpuimage_torch.pipelines import docrestore, modules
+    from tpuimage_torch.presets import apply
+    from tpuimage_torch.presets.loader import CategorizationPreset, EnhancementPreset
+    x = synth.shadowed_scene(1320, 240, 320)
+    every = CategorizationPreset(
+        name="every", group="g", brightness_mode="gamma", brightness_gamma=0.9,
+        contrast_mode="clahe", saturation_mult=1.2, gray_world=True, chroma_boost_cb=1.1,
+        highlight_compression="log", local_contrast=True, invert=True)
+    sky = EnhancementPreset(name="sky", group="g", hist_method="equalization",
+                            sky_protection_power=3.0, blend_strength=0.55)
+    calls = (("categorization", lambda **kw: apply.apply_categorization_preset(x, every, **kw)),
+             ("enhancement", lambda **kw: apply.apply_enhancement_preset(x, sky, **kw)),
+             ("module1", lambda **kw: modules.module1_enhance(x, **kw)),
+             ("module3", lambda **kw: modules.module3_transform(x, 12.0, 0.8, (25, -15), **kw)),
+             ("module4", lambda **kw: modules.module4_segment(x, **kw)),
+             ("module5", lambda **kw: modules.module5_color(x, "HSV", **kw)),
+             ("module6", lambda **kw: modules.module6_features(x, **kw)["edge_map"]))
+    for what, fn in calls:
+        card = fn()
+        assert card.device.type == "cuda", what
+        _landscape_within(card, fn(device="cpu"), what)
+    doc = synth.white_page(1321, 320, 240)
+    den, cl, sharp = docrestore._enhance_core(torch.from_numpy(doc).to(cuda_device))
+    # the NLM's f32 exp differs between the card and the host in the last
+    # place: 2 levels on ~1e-5 of values; each later stage on the card's
+    # previous one is equal
+    diff = (den.cpu().to(torch.int32) - docrestore._denoise(torch.from_numpy(doc))).abs()
+    assert int(diff.max()) <= 2 and int((diff > 0).sum()) < 1e-4 * diff.numel()
+    assert torch.equal(cl.cpu(), docrestore._clahe_l(den.cpu()))
+    assert torch.equal(sharp.cpu(), docrestore._stretch_sharpen(cl.cpu()))
+    gray = color.rgb_to_gray(sharp)
+    for c, h in zip(docrestore._segment_and_final(gray),
+                    docrestore._segment_and_final(gray.cpu())):
+        assert torch.equal(c.cpu(), h)

@@ -6,7 +6,9 @@ its integer offset, the Hough cos/sin tables, the structuring elements
 and the preprocess's bilateral taps and weights); the night paths' is
 the Lab tables and CLAHE's blend matrices. The tables are built from
 numpy exactly as tpuimage builds them. The CLIP classifier's weights come
-across from tpuimage's Flax parameters (``clip_params_from_tpuimage``).
+across from tpuimage's Flax parameters (``clip_params_from_tpuimage``),
+and its presets (the shadow pipeline's and the two databases') as plain
+dicts (``preset_from_tpuimage``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from tpuimage_torch.ops.kernels import color_weight_table
 from tpuimage_torch.pipelines.docscan import (INK_DILATE_SE, DocScanConfig,
                                               adaptive_block, blackhat_se,
                                               illum_ksize, mask_ksize)
+from tpuimage_torch.pipelines.shadow import ShadowPreset
+from tpuimage_torch.presets.loader import CategorizationPreset, EnhancementPreset
 
 
 def config_from_tpuimage(cfg) -> DocScanConfig:
@@ -34,6 +38,18 @@ def config_from_tpuimage(cfg) -> DocScanConfig:
     if set(fields) != ours:
         raise ValueError(f"config fields differ: {sorted(set(fields) ^ ours)}")
     return DocScanConfig(**fields)
+
+
+def preset_from_tpuimage(d: dict):
+    """``dataclasses.asdict`` of a tpuimage ``ShadowPreset``,
+    ``CategorizationPreset`` or ``EnhancementPreset`` -> the port's
+    dataclass of the same fields (lists, as a JSON round trip leaves
+    them, become tuples)."""
+    fields = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+    for cls in (ShadowPreset, CategorizationPreset, EnhancementPreset):
+        if set(fields) == {f.name for f in dataclasses.fields(cls)}:
+            return cls(**fields)
+    raise ValueError(f"no preset class has the fields {sorted(fields)}")
 
 
 def static_tables(config: DocScanConfig, page_shape=(1200, 849)) -> dict:

@@ -20,4 +20,7 @@ def as_input(x, device=None) -> torch.Tensor:
     ``device``); an array goes to ``resolve_device(device)``."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(resolve_device(device))
-    return torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device))
+    arr = np.ascontiguousarray(x)
+    if not arr.flags.writeable:        # a read-only buffer (a JAX array's, say): a copy
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(resolve_device(device))

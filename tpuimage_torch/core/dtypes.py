@@ -8,6 +8,7 @@ back to uint8 goes through :func:`saturate_u8` (OpenCV's
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -44,3 +45,26 @@ def fma_f32(x: torch.Tensor, y: torch.Tensor, z) -> torch.Tensor:
     halfway between two f32 values), which the callers' inputs do not meet
     in their tests."""
     return (x.double() * y.double() + z).to(torch.float32)
+
+
+def fma_np(x, y, z) -> np.ndarray:
+    """numpy f32 ``x * y + z`` rounded once (the f64 product of f32 values
+    is exact): the tables' form of :func:`fma_f32`."""
+    return (np.float64(x) * np.float64(y) + np.float64(z)).astype(np.float32)
+
+
+def pow_np(x: np.ndarray, p: float):
+    """``x ** p`` on f32 as XLA computes ``pow(x, p)``: (left, right) of
+    the last product for p = 2 and 3 (the compiler writes x*x and
+    x*(x*x)), else (the f32 value, None): 1 and x for p = 0 and 1, the
+    correctly rounded f64 power otherwise."""
+    p = np.float32(p)
+    if p == 2:
+        return x, x
+    if p == 3:
+        return x, x * x
+    if p == 0:
+        return np.ones_like(x), None
+    if p == 1:
+        return x, None
+    return np.power(x.astype(np.float64), np.float64(p)).astype(np.float32), None

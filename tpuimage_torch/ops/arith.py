@@ -13,7 +13,11 @@ from __future__ import annotations
 
 import torch
 
-from tpuimage_torch.core.dtypes import f32, fma_f32, i32, saturate_u8
+from tpuimage_torch.core.dtypes import f32, fma_f32, i32, saturate_u8, trunc_u8
+
+
+def add_u8(a: torch.Tensor, b) -> torch.Tensor:
+    return saturate_u8(i32(a) + i32(torch.as_tensor(b, device=a.device)))
 
 
 def subtract_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -39,8 +43,43 @@ def divide_u8(a: torch.Tensor, b: torch.Tensor, scale: int = 1) -> torch.Tensor:
     return torch.clamp(q, 0, 255).to(torch.uint8)
 
 
+def multiply_u8(a: torch.Tensor, b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    return saturate_u8(f32(a) * f32(b) * scale)
+
+
 def max_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.maximum(a, b)
+
+
+def min_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(a, b)
+
+
+def bitwise_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b
+
+
+def bitwise_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & b
+
+
+def bitwise_not(a: torch.Tensor) -> torch.Tensor:
+    return ~a
+
+
+def absdiff_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return saturate_u8(torch.abs(i32(a) - i32(b)))
+
+
+def blend_mask(a: torch.Tensor, b: torch.Tensor, mask01: torch.Tensor) -> torch.Tensor:
+    """trunc(a * m + b * (1 - m)), each product and the sum rounded on its
+    own (tpuimage's op called alone; inside a jitted program XLA fuses one
+    product, which the pipelines reproduce at their own sites). A mask
+    with one dim fewer than the images weighs every channel."""
+    m = f32(mask01)
+    if m.dim() == a.dim() - 1:
+        m = m[..., None]
+    return trunc_u8(f32(a) * m + f32(b) * (1.0 - m))
 
 
 def in_range(img: torch.Tensor, lower, upper) -> torch.Tensor:

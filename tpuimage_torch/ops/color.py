@@ -1,7 +1,8 @@
 """Colour conversions bit-matching OpenCV's 8-bit paths (counterpart of
-``tpuimage.ops.color``): RGB <-> gray, RGB -> YCrCb (Q14 fixed point), RGB
--> Lab (fixed point, the ``rgb_to_lab`` kernel on the card), Lab -> RGB
-(float) and RGB <-> HSV (8-bit, H in [0, 180))."""
+``tpuimage.ops.color``): RGB <-> gray, RGB <-> YCrCb (Q14 fixed point),
+RGB -> Lab (fixed point, the ``rgb_to_lab`` kernel on the card), Lab ->
+RGB (float) and RGB <-> HSV (8-bit, H in [0, 180)); the BGR forms flip
+the channels around them."""
 from __future__ import annotations
 
 import functools
@@ -20,6 +21,10 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) uint8 RGB -> (..., H, W) uint8 gray."""
     r, g, b = i32(img[..., 0]), i32(img[..., 1]), i32(img[..., 2])
     return descale(r * _R2Y15 + g * _G2Y15 + b * _B2Y15, 15).to(torch.uint8)
+
+
+def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
+    return rgb_to_gray(img.flip(-1))
 
 
 def gray_to_rgb(gray: torch.Tensor) -> torch.Tensor:
@@ -44,6 +49,27 @@ def rgb_to_ycrcb(img: torch.Tensor) -> torch.Tensor:
     cr = descale((r - y) * _YCRCB_C3 + delta, _YUV_SHIFT)
     cb = descale((b - y) * _YCRCB_C4 + delta, _YUV_SHIFT)
     return saturate_u8(torch.stack([y, cr, cb], dim=-1))
+
+
+def bgr_to_ycrcb(img: torch.Tensor) -> torch.Tensor:
+    return rgb_to_ycrcb(img.flip(-1))
+
+
+_YCRCB_INV = (22987, -11698, -5636, 29049)  # 1.403, -0.714, -0.344, 1.773 in Q14
+
+
+def ycrcb_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 YCrCb -> (..., 3) uint8 RGB, exact integer arithmetic."""
+    y, cr, cb = i32(img[..., 0]), i32(img[..., 1]) - 128, i32(img[..., 2]) - 128
+    c0, c1, c2, c3 = _YCRCB_INV
+    r = y + descale(cr * c0, _YUV_SHIFT)
+    g = y + descale(cr * c1 + cb * c2, _YUV_SHIFT)
+    b = y + descale(cb * c3, _YUV_SHIFT)
+    return saturate_u8(torch.stack([r, g, b], dim=-1))
+
+
+def ycrcb_to_bgr(img: torch.Tensor) -> torch.Tensor:
+    return ycrcb_to_rgb(img).flip(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +118,10 @@ def rgb_to_lab(img: torch.Tensor) -> torch.Tensor:
     return kernels.rgb_to_lab(img.contiguous(), lab_tables_on(img.device))
 
 
+def bgr_to_lab(img: torch.Tensor) -> torch.Tensor:
+    return rgb_to_lab(img.flip(-1))
+
+
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` as a true division. On a CUDA tensor PyTorch turns
     ``tensor / python_scalar`` into a multiply by the reciprocal, which
@@ -132,6 +162,10 @@ def lab_to_rgb(img: torch.Tensor) -> torch.Tensor:
     return saturate_u8(srgb * 255.0)
 
 
+def lab_to_bgr(img: torch.Tensor) -> torch.Tensor:
+    return lab_to_rgb(img).flip(-1)
+
+
 # ---------------------------------------------------------------------------
 # HSV (8-bit, H in [0, 180)): the integer table algorithm of color_hsv.simd
 # one way, OpenCV's float sector algorithm the other
@@ -170,6 +204,10 @@ def rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
     return torch.stack([h, s, v], dim=-1).to(torch.uint8)
 
 
+def bgr_to_hsv(img: torch.Tensor) -> torch.Tensor:
+    return rgb_to_hsv(img.flip(-1))
+
+
 def hsv_to_rgb(img: torch.Tensor) -> torch.Tensor:
     """(..., 3) uint8 HSV -> (..., 3) uint8 RGB: OpenCV's float sector
     algorithm with the 8-bit rescale truncated, as tpuimage's jitted
@@ -193,3 +231,16 @@ def hsv_to_rgb(img: torch.Tensor) -> torch.Tensor:
     rgb = torch.stack([pick([0, 2, 1, 1, 3, 0]), pick([3, 0, 0, 2, 1, 1]),
                        pick([1, 1, 3, 0, 0, 2])], dim=-1)
     return torch.clamp(torch.floor(rgb * 255.0), 0, 255).to(torch.uint8)
+
+
+def hsv_to_bgr(img: torch.Tensor) -> torch.Tensor:
+    return hsv_to_rgb(img).flip(-1)
+
+
+def split(img: torch.Tensor):
+    """The channels of an (..., C) image, each (...)."""
+    return tuple(img[..., c] for c in range(img.shape[-1]))
+
+
+def merge(channels) -> torch.Tensor:
+    return torch.stack(list(channels), dim=-1)

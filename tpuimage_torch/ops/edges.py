@@ -1,4 +1,5 @@
-"""Sobel and Canny (counterpart of ``tpuimage.ops.edges``).
+"""Sobel, Scharr, Laplacian, magnitude / phase and Canny (counterpart of
+``tpuimage.ops.edges``).
 
 Canny is OpenCV's exact algorithm on each (H, W) plane: Sobel3 with a
 reflect-101 border (as ``tpuimage.ops.edges._conv3x3_i32`` pads), L1
@@ -21,7 +22,18 @@ _SOBEL_3 = {
     # (deriv order dx, dy) -> 3x3 kernel (correlation form, like cv2)
     (1, 0): np.outer([1, 2, 1], [-1, 0, 1]),
     (0, 1): np.outer([-1, 0, 1], [1, 2, 1]),
+    (2, 0): np.outer([1, 2, 1], [1, -2, 1]),
+    (0, 2): np.outer([1, -2, 1], [1, 2, 1]),
+    (1, 1): np.outer([-1, 0, 1], [-1, 0, 1]),
 }
+
+_SCHARR = {
+    (1, 0): np.outer([3, 10, 3], [-1, 0, 1]),
+    (0, 1): np.outer([-1, 0, 1], [3, 10, 3]),
+}
+
+_LAPLACIAN = {1: np.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]]),
+              3: np.array([[2, 0, 2], [0, -8, 0], [2, 0, 2]])}
 
 _TG22 = 13573  # cv2: tan(22.5 deg) * 2^15, rounded
 _STEPS_PER_CHECK = 8
@@ -41,9 +53,43 @@ def _conv3x3_f32(img: torch.Tensor, k: np.ndarray) -> torch.Tensor:
     return acc
 
 
-def sobel(img: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
-    """cv2.Sobel ksize 3 (values identical to CV_32F / CV_16S output)."""
+def sobel(img: torch.Tensor, dx: int, dy: int, ksize: int = 3,
+          scharr: bool = False) -> torch.Tensor:
+    """cv2.Sobel ksize 3, or Scharr (``scharr`` or ``ksize=-1``), values
+    identical to CV_32F / CV_16S output."""
+    if scharr or ksize == -1:
+        return _conv3x3_f32(img, _SCHARR[(dx, dy)])
+    if ksize != 3:
+        raise ValueError(f"sobel: ksize 3 or -1 (Scharr), got {ksize}")
     return _conv3x3_f32(img, _SOBEL_3[(dx, dy)])
+
+
+def laplacian(img: torch.Tensor, ksize: int = 1) -> torch.Tensor:
+    """cv2.Laplacian, ksize 1 ([[0,1,0],[1,-4,1],[0,1,0]]) or 3
+    ([[2,0,2],[0,-8,0],[2,0,2]]), exact in f32."""
+    return _conv3x3_f32(img, _LAPLACIAN[1 if ksize <= 1 else 3])
+
+
+def magnitude(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """cv2.magnitude (L2). On Sobel values the sum of squares is an exact
+    integer, so a fused multiply-add gives the same value."""
+    return torch.sqrt(f32(gx) * f32(gx) + f32(gy) * f32(gy))
+
+
+def phase(gx: torch.Tensor, gy: torch.Tensor, degrees: bool = True) -> torch.Tensor:
+    """cv2.phase: atan2 in [0, 360) degrees (or [0, 2 pi) radians); the
+    atan2 in f64 rounded to f32, the same on every device."""
+    ang = torch.atan2(gy.double(), gx.double()).to(torch.float32)
+    if degrees:
+        ang = ang * float(np.float32(180.0 / np.pi))
+        return torch.where(ang < 0, ang + 360.0, ang)
+    return torch.where(ang < 0, ang + float(np.float32(2.0 * np.pi)), ang)
+
+
+def laplacian_variance(gray: torch.Tensor) -> torch.Tensor:
+    """Var(Laplacian) of each (H, W) plane (the blur metric), f32."""
+    lap = laplacian(gray)
+    return lap.var(dim=(-2, -1), unbiased=False)
 
 
 def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

@@ -58,11 +58,14 @@ def gaussian_kernel_q8(ksize: int, sigma: float = 0.0) -> np.ndarray:
     return q
 
 
-def _sepconv_valid_f32(padded: torch.Tensor, kx, ky) -> torch.Tensor:
+def _sepconv_valid_f32(padded: torch.Tensor, kx, ky, fma: bool = False) -> torch.Tensor:
     """Separable 'valid' convolution of an already-padded (..., H, W) f32
     tensor: the vertical pass first, then the horizontal one. Symmetric
     odd kernels accumulate in OpenCV's order
-    ``k[r]*x[0] + sum_i k[r+i]*(x[+i] + x[-i])``; others tap 0..k-1."""
+    ``k[r]*x[0] + sum_i k[r+i]*(x[+i] + x[-i])``; others tap 0..k-1.
+    ``fma`` (symmetric kernels) rounds each ``acc + pair * k`` once, the
+    first one with the ``x[0] * k[r]`` product fused, as XLA's CPU
+    compiler makes of tpuimage's jitted blur."""
     kyv = np.asarray(ky, dtype=np.float32).ravel()
     kxv = np.asarray(kx, dtype=np.float32).ravel()
 
@@ -72,10 +75,21 @@ def _sepconv_valid_f32(padded: torch.Tensor, kx, ky) -> torch.Tensor:
         sl = lambda i: x.narrow(dim, i, out)  # noqa: E731
         if n % 2 == 1 and bool(np.all(k == k[::-1])):
             r = n // 2
+            if fma:
+                # f32 acc + pair * k rounded once: the f64 product of two f32
+                # values is exact, one f64 sum rounded to f32 is the fused result
+                acc = torch.add(((sl(r - 1) + sl(r + 1)) * float(k[r + 1])).double(),
+                                sl(r).double(), alpha=float(k[r])).to(torch.float32)
+                for i in range(2, r + 1):
+                    acc = torch.add(acc.double(), (sl(r - i) + sl(r + i)).double(),
+                                    alpha=float(k[r + i])).to(torch.float32)
+                return acc
             acc = sl(r) * float(k[r])
             for i in range(1, r + 1):
                 acc = acc + (sl(r - i) + sl(r + i)) * float(k[r + i])
             return acc
+        if fma:
+            raise ValueError("_sepconv_valid_f32: fma takes a symmetric odd kernel")
         acc = sl(0) * float(k[0])
         for i in range(1, n):
             acc = acc + sl(i) * float(k[i])
@@ -124,26 +138,39 @@ def gaussian_blur_u8_plain(img: torch.Tensor, ksize: int, sigma: float = 0.0,
 
 
 def gaussian_blur_f32(img: torch.Tensor, ksize: int = 0, sigma: float = 0.0,
-                      border: str = BORDER_REFLECT_101) -> torch.Tensor:
-    """Float Gaussian blur of each (H, W) plane (adaptiveThreshold's mean)."""
+                      border: str = BORDER_REFLECT_101, channels_last: bool = False,
+                      fma: bool = False) -> torch.Tensor:
+    """Float Gaussian blur of each (H, W) plane (adaptiveThreshold's mean),
+    or, with ``channels_last``, of each channel of a (..., H, W, C) tensor.
+    ``fma`` rounds each tap's multiply-add once, as tpuimage's jitted
+    programs do (the shadow mask, the Retinex, local contrast); without
+    it each product and sum rounds on its own (OpenCV's order, which the
+    adaptive threshold's kernel follows). Plain tensor ops on every
+    device: tpuimage has no kernel for it."""
     if ksize <= 0:
         if sigma <= 0:
             return img
         ksize = gaussian_ksize_from_sigma(sigma, depth_8u=False)
     if ksize == 1:
         return img
+    if channels_last:
+        planes = gaussian_blur_f32(img.movedim(-1, -3), ksize, sigma, border, fma=fma)
+        return planes.movedim(-3, -1).contiguous()
     k = get_gaussian_kernel(ksize, sigma).astype(np.float32)
     r = ksize // 2
     p = pad2d(f32(img), r, r, r, r, mode=border)
-    return _sepconv_valid_f32(p, k, k)
+    return _sepconv_valid_f32(p, k, k, fma=fma)
 
 
 def box_sums_valid(x: torch.Tensor, k: int) -> torch.Tensor:
     """Sums over every k x k window inside each (H, W) plane of a (..., H,
     W) float tensor ('valid': (..., H - k + 1, W - k + 1)), the rows first,
     added one shifted view at a time: exact for integer values whose sums
-    stay below 2**24 (in f32: the squares and products of bytes over 7x7)."""
+    stay below 2**24 (in f32: the squares and products of bytes over 7x7).
+    A plane smaller than the window has no window: an empty result."""
     h, w = x.shape[-2] - k + 1, x.shape[-1] - k + 1
+    if h <= 0 or w <= 0:
+        return x.new_zeros(x.shape[:-2] + (max(h, 0), max(w, 0)))
     s = x[..., 0:h, :]
     for i in range(1, k):
         s = s + x[..., i:i + h, :]
@@ -173,3 +200,11 @@ def box_filter_u8(img: torch.Tensor, ksize: int,
     s = _window_sums(_window_sums(p, ksize, -2), ksize, -1)
     inv_area = torch.tensor(1.0 / (ksize * ksize), dtype=torch.float32, device=img.device)
     return saturate_u8(f32(s) * inv_area)
+
+
+def unsharp_mask_u8(img: torch.Tensor, amount: float, sigma: float = 0.0,
+                    ksize: int = 0, channels_last: bool = False) -> torch.Tensor:
+    """sharpen = addWeighted(img, 1 + amount, blur, -amount, 0), the blur
+    :func:`gaussian_blur_u8` (tpuimage's ``unsharp_mask_u8``)."""
+    blurred = gaussian_blur_u8(img, ksize=ksize, sigma=sigma, channels_last=channels_last)
+    return saturate_u8(f32(img) * (1.0 + amount) + f32(blurred) * (-amount))

@@ -1,5 +1,6 @@
-"""Resize (INTER_AREA), perspective warp and the deskew rotation
-(counterpart of ``tpuimage.ops.geometry``).
+"""Resize (nearest, linear, cubic, area), affine and perspective warps,
+rotation and translation, and the deskew rotation (counterpart of
+``tpuimage.ops.geometry``).
 
 Warp and rotation are inverse-map bilinear gathers with a final cvRound,
 as this OpenCV build computes them in plain f32. The parity contract
@@ -62,6 +63,51 @@ def _resize_linear_u8(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor
     return saturate_u8(torch.floor((acc + 2.0 ** 21) / 2.0 ** 22))
 
 
+def _cubic_kernel(x: np.ndarray, A: float = -0.75) -> np.ndarray:
+    ax = np.abs(x)
+    return np.where(
+        ax <= 1.0, ((A + 2.0) * ax - (A + 3.0)) * ax * ax + 1.0,
+        np.where(ax < 2.0, ((A * ax - 5.0 * A) * ax + 8.0 * A) * ax - 4.0 * A, 0.0))
+
+
+def _cubic_coeffs_1d(dst: int, src: int):
+    """OpenCV resize INTER_CUBIC: four source indices (clamped) and Q11
+    weights per destination index."""
+    scale = src / dst
+    x = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+    sx = np.floor(x).astype(np.int64)
+    fx = x - sx
+    offs = np.arange(-1, 3)
+    w = np.rint(_cubic_kernel(fx[:, None] - offs[None, :]) * _RESIZE_SCALE)
+    idx = np.clip(sx[:, None] + offs[None, :], 0, src - 1)
+    return idx, w.astype(np.float32)
+
+
+def _resize_cubic_u8(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """The four taps of each pass summed in order from 0, as tpuimage's
+    ``sum`` does (the second pass's sums pass 2**24, so the order counts)."""
+    h, w = img.shape[0], img.shape[1]
+    iy, wy = _cubic_coeffs_1d(out_h, h)
+    ix, wx = _cubic_coeffs_1d(out_w, w)
+    dev, nd = img.device, img.dim()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    x = f32(img)
+    row = 0
+    for j in range(4):
+        row = row + x[:, t(ix[:, j])] * t(wx[:, j]).reshape(_bshape(out_w, 1, nd))
+    acc = 0
+    for j in range(4):
+        acc = acc + row[t(iy[:, j])] * t(wy[:, j]).reshape(_bshape(out_h, 0, nd))
+    return saturate_u8(acc / 2.0 ** 22)
+
+
+def _resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    h, w = img.shape[0], img.shape[1]
+    sy = np.minimum(np.floor(np.arange(out_h) * (h / out_h)).astype(np.int64), h - 1)
+    sx = np.minimum(np.floor(np.arange(out_w) * (w / out_w)).astype(np.int64), w - 1)
+    return img[torch.from_numpy(sy).to(img.device)][:, torch.from_numpy(sx).to(img.device)]
+
+
 def _area_coeffs(dst: int, src: int):
     scale = src / dst
     rows = []
@@ -107,13 +153,19 @@ def _resize_area_u8(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 def resize(img: torch.Tensor, out_h: int, out_w: int,
            interpolation: str = "area") -> torch.Tensor:
-    """cv2.resize INTER_AREA of an (H, W) or (H, W, C) uint8 tensor
-    (upscales fall back to bilinear, as OpenCV's do). tpuimage's other
-    interpolations are not ported yet."""
-    if interpolation != "area":
-        raise NotImplementedError(f"interpolation {interpolation!r}")
+    """cv2.resize of an (H, W) or (H, W, C) uint8 tensor; interpolation in
+    {nearest, linear, cubic, area} (an INTER_AREA upscale falls back to
+    bilinear, as OpenCV's does)."""
     if out_h == img.shape[0] and out_w == img.shape[1]:
         return img
+    if interpolation == "nearest":
+        return _resize_nearest(img, out_h, out_w)
+    if interpolation == "linear":
+        return _resize_linear_u8(img, out_h, out_w)
+    if interpolation == "cubic":
+        return _resize_cubic_u8(img, out_h, out_w)
+    if interpolation != "area":
+        raise ValueError(f"unknown interpolation {interpolation!r}")
     if out_h >= img.shape[0] or out_w >= img.shape[1]:
         return _resize_linear_u8(img, out_h, out_w)
     return _resize_area_u8(img, out_h, out_w)
@@ -151,11 +203,23 @@ def get_perspective_transform(src_pts, dst_pts) -> np.ndarray:
     return np.append(h, 1.0).reshape(3, 3)
 
 
+def get_rotation_matrix_2d(center, angle_deg: float, scale: float = 1.0) -> np.ndarray:
+    """cv2.getRotationMatrix2D: the forward 2x3 float64 matrix."""
+    a = np.deg2rad(angle_deg)
+    alpha, beta = scale * np.cos(a), scale * np.sin(a)
+    cx, cy = center
+    return np.array([
+        [alpha, beta, (1 - alpha) * cx - beta * cy],
+        [-beta, alpha, beta * cx + (1 - alpha) * cy],
+    ], dtype=np.float64)
+
+
 def _bilinear_gather_u8(img: torch.Tensor, map_x: torch.Tensor,
-                        map_y: torch.Tensor, border: str) -> torch.Tensor:
+                        map_y: torch.Tensor, border: str,
+                        border_value: float = 0.0) -> torch.Tensor:
     """Sample each image of a (B, H, W[, C]) uint8 batch at float coords
     (B, oh, ow) with cv2 INTER_LINEAR semantics; ``border`` is
-    ``constant`` (0) or ``replicate``."""
+    ``constant`` (``border_value``) or ``replicate``."""
     b, h, w = img.shape[0], img.shape[1], img.shape[2]
     chan = img.dim() == 4
     x0 = torch.floor(map_x)
@@ -176,7 +240,7 @@ def _bilinear_gather_u8(img: torch.Tensor, map_x: torch.Tensor,
         inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
         if chan:
             inb = inb[..., None]
-        return torch.where(inb, v, torch.zeros_like(v))
+        return torch.where(inb, v, torch.full_like(v, float(border_value)))
 
     def wmul(wy, wx):
         ww = wy * wx
@@ -193,6 +257,61 @@ def _grid(out_h: int, out_w: int, device) -> tuple:
     ys = torch.arange(out_h, dtype=torch.float32, device=device)[:, None]
     xs = torch.arange(out_w, dtype=torch.float32, device=device)[None, :]
     return ys.expand(out_h, out_w), xs.expand(out_h, out_w)
+
+
+def _warp_grid(img: torch.Tensor, a: np.ndarray, out_h: int, out_w: int, border: str,
+               border_value: float, perspective: bool) -> torch.Tensor:
+    """One (H, W[, C]) image sampled through the INVERSE map ``a`` (2x3 or
+    3x3 float64, taken to f32), each product and sum rounded on its own,
+    as tpuimage's warps compute op by op."""
+    ys, xs = _grid(out_h, out_w, img.device)
+    c = [float(v) for v in np.asarray(a, dtype=np.float32).ravel()]
+    sx = c[0] * xs + c[1] * ys + c[2]
+    sy = c[3] * xs + c[4] * ys + c[5]
+    if perspective:
+        denom = c[6] * xs + c[7] * ys + c[8]
+        denom = torch.where(denom != 0, denom, torch.full_like(denom, 1e-20))
+        sx, sy = sx / denom, sy / denom
+    return _bilinear_gather_u8(img[None], sx[None], sy[None], border, border_value)[0]
+
+
+def warp_affine(img: torch.Tensor, M: np.ndarray, out_h: int, out_w: int,
+                border: str = "constant", border_value: float = 0.0) -> torch.Tensor:
+    """cv2.warpAffine INTER_LINEAR of one (H, W[, C]) uint8 image; ``M`` is
+    the forward 2x3, inverted on the host as cv2's invertAffineTransform."""
+    M = np.asarray(M, dtype=np.float64)
+    D = M[0, 0] * M[1, 1] - M[0, 1] * M[1, 0]
+    Di = 1.0 / D if D != 0 else 0.0
+    ia = np.array([[M[1, 1] * Di, -M[0, 1] * Di, 0.0],
+                   [-M[1, 0] * Di, M[0, 0] * Di, 0.0]])
+    ia[0, 2] = -ia[0, 0] * M[0, 2] - ia[0, 1] * M[1, 2]
+    ia[1, 2] = -ia[1, 0] * M[0, 2] - ia[1, 1] * M[1, 2]
+    return _warp_grid(img, ia, out_h, out_w, border, border_value, perspective=False)
+
+
+def warp_perspective(img: torch.Tensor, M: np.ndarray, out_h: int, out_w: int,
+                     border: str = "constant", border_value: float = 0.0) -> torch.Tensor:
+    """cv2.warpPerspective INTER_LINEAR of one (H, W[, C]) uint8 image; ``M``
+    maps source to destination and is inverted on the host."""
+    minv = np.linalg.inv(np.asarray(M, dtype=np.float64))
+    return _warp_grid(img, minv, out_h, out_w, border, border_value, perspective=True)
+
+
+def rotate(img: torch.Tensor, angle_deg: float, scale: float = 1.0,
+           border: str = "constant") -> torch.Tensor:
+    """getRotationMatrix2D about the center + warpAffine (the notebook's
+    rotate)."""
+    h, w = int(img.shape[0]), int(img.shape[1])
+    M = get_rotation_matrix_2d((w / 2.0, h / 2.0), angle_deg, scale)
+    return warp_affine(img, M, h, w, border=border)
+
+
+def translate(img: torch.Tensor, tx: float, ty: float,
+              border: str = "constant") -> torch.Tensor:
+    """warpAffine with [[1, 0, tx], [0, 1, ty]] (the notebook's translate)."""
+    M = np.array([[1.0, 0.0, tx], [0.0, 1.0, ty]])
+    h, w = int(img.shape[0]), int(img.shape[1])
+    return warp_affine(img, M, h, w, border=border)
 
 
 def warp_perspective_batch(imgs: torch.Tensor, minv: torch.Tensor,

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from tpuimage_torch.core.borders import BORDER_REFLECT_101, pad2d
-from tpuimage_torch.core.dtypes import f32, saturate_u8
+from tpuimage_torch.core.dtypes import f32, fma_f32, saturate_u8
 from tpuimage_torch.ops import kernels
 from tpuimage_torch.ops.kernels import hist256_batch as _hist256_rows
 
@@ -69,6 +69,51 @@ def otsu_from_hist(hist: torch.Tensor) -> torch.Tensor:
                       torch.zeros_like(q2))
     sigma = torch.where(valid, q1 * q2 * (mu1 - mu2) ** 2, -one)
     return torch.argmax(sigma, dim=-1).to(torch.float32)
+
+
+def percentile(values: torch.Tensor, q) -> torch.Tensor:
+    """``jnp.percentile(values, q)`` (linear interpolation) over the last
+    dim of an f32 tensor, each row on its own, as tpuimage's jitted
+    programs compute it: a sort; the position ``q / 100 * (n - 1)`` as
+    XLA folds its constants (an integer q: q * f32(f32(n - 1) * f32(1 /
+    100)); a float q: f32(q / 100) * (n - 1)); then ``low * (1 - w) +
+    high * w`` with the low product fused into the add. A sort, not
+    ``torch.quantile``, which refuses more than 2**24 values."""
+    f = np.float32
+    n = int(values.shape[-1])
+    if isinstance(q, (int, np.integer)):
+        pos = f(q) * f(f(n - 1) * (f(1.0) / f(100.0)))
+    else:
+        pos = f(f(q) / f(100.0)) * f(n - 1)
+    hw = f(pos - np.floor(pos))
+    lw = f(1.0) - hw
+    low = int(min(max(np.floor(pos), 0), n - 1))
+    high = int(min(max(np.ceil(pos), 0), n - 1))
+    ordered = torch.sort(values, dim=-1).values
+    lv, hv = ordered[..., low], ordered[..., high]
+    return fma_f32(lv, torch.tensor(float(lw)), (hv * float(hw)).double())
+
+
+def equalize_hist(gray: torch.Tensor) -> torch.Tensor:
+    """cv2.equalizeHist on each (H, W) plane of a (..., H, W) uint8 tensor:
+    the CDF LUT anchored at the first occupied bin, ``(cdf - cdf[first]) *
+    f32(255 / (n - h[first]))`` cvRounded; a constant plane stays as it is.
+    The histograms through the ``hist256`` kernel, then one gather of each
+    plane's LUT (the ``ops.lut`` pattern, a row of tables at once)."""
+    h, w = gray.shape[-2], gray.shape[-1]
+    rows = gray.reshape(-1, h * w)
+    hist = hist256_batch(rows)
+    first = torch.argmax((hist > 0).to(torch.int32), dim=1, keepdim=True)
+    denom = h * w - torch.gather(hist, 1, first)
+    safe = f32(torch.clamp(denom, min=1))
+    scale = torch.where(denom > 0, torch.full_like(safe, 255.0) / safe, torch.zeros_like(safe))
+    csum = torch.cumsum(hist, dim=1)
+    lut = saturate_u8((f32(csum) - f32(torch.gather(csum, 1, first))) * scale)
+    idx = torch.arange(256, device=gray.device)[None, :]
+    lut = torch.where(idx < first, torch.zeros_like(lut), lut)
+    out = torch.gather(lut, 1, rows.to(torch.int64))
+    out = torch.where(denom > 0, out, rows)
+    return out.reshape(gray.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Erode / dilate / open / close / blackhat with flat structuring elements
+"""Erode / dilate / open / close / blackhat / tophat / gradient with flat structuring elements
 (counterpart of ``tpuimage.ops.morphology``).
 
 Borders follow OpenCV's constant +inf/-inf semantics (erode pads 255,
@@ -115,3 +115,15 @@ def morph_blackhat_plain(img: torch.Tensor, se: np.ndarray,
     """The log-step form of :func:`morph_blackhat`."""
     closed = morph_close(img, se, iterations)
     return saturate_u8(closed.to(torch.int32) - img.to(torch.int32))
+
+
+def morph_tophat(img: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
+    """cv2.MORPH_TOPHAT = src - open(src), saturating."""
+    opened = morph_open(img, se, iterations)
+    return saturate_u8(img.to(torch.int32) - opened.to(torch.int32))
+
+
+def morph_gradient(img: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
+    """cv2.MORPH_GRADIENT = dilate(src) - erode(src)."""
+    return saturate_u8(dilate(img, se, iterations).to(torch.int32)
+                       - erode(img, se, iterations).to(torch.int32))

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from tpuimage_torch.core.device import as_input
-from tpuimage_torch.core.dtypes import f32, fma_f32, trunc_u8
+from tpuimage_torch.core.dtypes import f32, fma_f32, fma_np, pow_np, trunc_u8
 from tpuimage_torch.ops import color
 from tpuimage_torch.ops.arith import add_weighted
 from tpuimage_torch.ops.bilateral import bilateral_filter
@@ -62,28 +62,6 @@ _F32 = np.float32
 _RECIP_255 = _F32(1.0) / _F32(255.0)   # x / 255 in the jitted programs
 
 
-def _fma_np(x, y, z) -> np.ndarray:
-    """f32 ``x * y + z`` rounded once (the f64 product of f32 values is exact)."""
-    return (np.float64(x) * np.float64(y) + np.float64(z)).astype(_F32)
-
-
-def _pow_np(x: np.ndarray, p: float):
-    """``x ** p`` on f32 as XLA computes ``pow(x, p)``: (left, right) of
-    the last product for p = 2 and 3 (the compiler writes x*x and
-    x*(x*x)), else (the f32 value, None): 1 and x for p = 0 and 1, the
-    correctly rounded f64 power otherwise."""
-    p = _F32(p)
-    if p == 2:
-        return x, x
-    if p == 3:
-        return x, x * x
-    if p == 0:
-        return np.ones_like(x), None
-    if p == 1:
-        return x, None
-    return np.power(x.astype(np.float64), np.float64(p)).astype(_F32), None
-
-
 @functools.lru_cache(maxsize=None)
 def sky_blend_table(sky_power: float, blend: float) -> np.ndarray:
     """(256, 256) uint8: entry [l, c] is the sky-protected L for original
@@ -95,10 +73,10 @@ def sky_blend_table(sky_power: float, blend: float) -> np.ndarray:
     into the add. (The blend's lines jitted alone fuse the other product.)"""
     lo = np.arange(256, dtype=_F32)[:, None]
     lc = np.arange(256, dtype=_F32)[None, :]
-    left, right = _pow_np(lo * _RECIP_255, sky_power)
-    t = _fma_np(-left, right, _F32(1)) if right is not None else _F32(1) - left
+    left, right = pow_np(lo * _RECIP_255, sky_power)
+    t = fma_np(-left, right, _F32(1)) if right is not None else _F32(1) - left
     ew = t * _F32(blend)
-    val = _fma_np(lo, _F32(1) - ew, lc * ew)
+    val = fma_np(lo, _F32(1) - ew, lc * ew)
     return np.clip(val, 0, 255).astype(np.uint8)
 
 
@@ -107,9 +85,9 @@ def degrade_tone_table(contrast: float, underexposure: float) -> np.ndarray:
     """(256,) uint8: degrade_image's first step for each byte v,
     trunc(((v / 255) * contrast + (1 - contrast) / 2) ** (1 / underexposure)
     * 255) in the jitted program's f32."""
-    x = _fma_np(np.arange(256, dtype=_F32) * _RECIP_255, _F32(contrast),
+    x = fma_np(np.arange(256, dtype=_F32) * _RECIP_255, _F32(contrast),
                 _F32(0.5 * (1.0 - contrast)))
-    left, right = _pow_np(np.maximum(x, _F32(0)), 1.0 / underexposure)
+    left, right = pow_np(np.maximum(x, _F32(0)), 1.0 / underexposure)
     x = left * right if right is not None else left
     return np.clip(x * _F32(255), 0, 255).astype(np.uint8)
 

@@ -72,27 +72,35 @@ def _text_ink(u: np.ndarray, v: np.ndarray, ph: int, pw: int,
 
 
 def _paper(u: np.ndarray, v: np.ndarray, ph: int, pw: int,
-           rng: np.random.Generator) -> np.ndarray:
+           rng: np.random.Generator, level: float = 226.0) -> np.ndarray:
     """Paper brightness with a smooth illumination falloff."""
     gu, gv = rng.uniform(-1, 1, size=2)
     shade = 18.0 * (gu * (u / pw - 0.5) + gv * (v / ph - 0.5))
-    return 226.0 + shade
+    return level + shade
 
 
 def page(seed: int, height: int = 1200, width: int = 849,
-         tilt_deg: float = 0.0, rules: int = 0) -> np.ndarray:
+         tilt_deg: float = 0.0, rules: int = 0, paper: float = 226.0) -> np.ndarray:
     """A flat (height, width, 3) uint8 page with text rows and ``rules``
-    table column lines. (DocScanner's deskew statistic folds line normals
-    to [-90, 90) degrees, so near-vertical lines carry the skew and
-    horizontal ones fold to about -90 and drop out.)"""
+    table column lines on paper of mean brightness ``paper``.
+    (DocScanner's deskew statistic folds line normals to [-90, 90)
+    degrees, so near-vertical lines carry the skew and horizontal ones
+    fold to about -90 and drop out.)"""
     rng = np.random.default_rng(seed)
     v, u = np.mgrid[0:height, 0:width].astype(np.float64)
-    gray = _paper(u, v, height, width, rng)
+    gray = _paper(u, v, height, width, rng, paper)
     ink = _text_ink(u, v, height, width, tilt_deg, rng, rules)
     gray = np.where(ink, rng.uniform(25, 60), gray)
     gray = gray + rng.normal(0.0, 2.0, size=gray.shape)
     rgb = np.stack([gray + 3.0, gray, gray - 4.0], axis=-1)
     return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+def white_page(seed: int, height: int = 1600, width: int = 1200) -> np.ndarray:
+    """A scanned page on bright paper (~244), the notebook's DOCUMENT
+    category: > 70% of its HSV V over 230 and ~14% of its Laplacian over
+    150 (:func:`page` at the default paper level has ~30% over 230)."""
+    return page(seed, height, width, paper=244.0)
 
 
 def _background(rng: np.random.Generator, height: int, width: int) -> np.ndarray:
@@ -226,6 +234,46 @@ def landscape_scene(seed: int, height: int = 853, width: int = 1280) -> np.ndarr
         ground = ground + rock[..., None] * (np.array([120.0, 110.0, 100.0]) - ground) * 0.9
     rgb = np.where((v < horizon[None, :])[..., None], sky, ground)
     rgb += rng.normal(0.0, 2.0, size=rgb.shape)
+    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+def shadowed_scene(seed: int, height: int = 853, width: int = 1280) -> np.ndarray:
+    """A (height, width, 3) uint8 sunlit street scene with a soft cast
+    shadow: a pale sky band over sunlit walls with window rows and a
+    pavement (HSV V ~130-240), crossed by the shadow of something out of
+    frame, a tilted edge softened over ~2% of the width plus a round
+    blob, covering 30-50% of the image at 25-33% of the light with a
+    bluish skylight tint (V ~40-90 there: under the presets' 80-110
+    thresholds, so the shadow mask is neither empty nor full)."""
+    rng = np.random.default_rng(seed)
+    v, u = np.mgrid[0:height, 0:width].astype(np.float64)
+    xn, yn = u / width, v / height
+    sky_end = rng.uniform(0.15, 0.25)
+    ground = rng.uniform(0.65, 0.75)
+    sky = np.array([170.0, 200.0, 235.0]) + 15.0 * yn[..., None] / sky_end
+    wall_tone = rng.uniform(0.85, 1.0, 3) * np.array([225.0, 205.0, 175.0])
+    texture = (_background(rng, height, width) - 55.0) / 20.0       # about -1 .. 1
+    wall = wall_tone * (1.0 + 0.04 * texture)[..., None]
+    pitch_x, pitch_y = rng.uniform(0.08, 0.12) * width, rng.uniform(0.12, 0.16) * height
+    win = ((np.mod(u, pitch_x) < 0.45 * pitch_x) & (np.mod(v - sky_end * height, pitch_y)
+                                                  < 0.5 * pitch_y))
+    wall = np.where(win[..., None], wall * 0.55 + np.array([40.0, 50.0, 70.0]), wall)
+    pave = np.array([200.0, 195.0, 185.0]) * (1.0 + 0.06 * texture)[..., None]
+    rgb = np.where((yn < sky_end)[..., None], sky,
+                   np.where((yn < ground)[..., None], wall, pave))
+    # the shadow: a tilted edge placed so that 30-50% falls behind it, and a blob
+    ang = rng.uniform(-0.6, 0.6)
+    d = (np.cos(ang) * (xn - 0.5) + np.sin(ang) * (yn - 0.5)) * width
+    d = d - np.quantile(d, 1.0 - rng.uniform(0.3, 0.42))
+    soft = 0.02 * width
+    s = 1.0 / (1.0 + np.exp(-np.clip(d / soft, -40.0, 40.0)))
+    by, bx = rng.uniform(0.3, 0.7) * height, rng.uniform(0.2, 0.8) * width
+    br = rng.uniform(0.08, 0.14) * width
+    blob = 1.0 / (1.0 + np.exp(-np.clip((br - np.hypot(v - by, u - bx)) / soft, -40.0, 40.0)))
+    s = np.maximum(s, blob)
+    dark = rng.uniform(0.25, 0.33)
+    light = 1.0 - s[..., None] * (1.0 - dark * np.array([0.9, 0.95, 1.15]))
+    rgb = rgb * light + rng.normal(0.0, 2.0, size=rgb.shape)
     return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
 
 
