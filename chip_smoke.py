@@ -5,7 +5,8 @@ serving paths (scan_batch, scan_stream) and its one-document path
 landscape (the GUI route and the degrade / restore evaluation), face
 (both tails of enhance_face), and classify and route (the heuristic
 classifiers, CLIP ViT-B/32 and the label router over the four
-enhancement paths).
+enhancement paths), the notebook's pipelines and presets, and the CLIs
+on PNG files.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -66,8 +67,8 @@ Phases (any failure raises and the exit code is non-zero):
 4. card against host: two of those requests again on the CPU, and
    ``_pre_deskew_stages`` with ``thresh_method="mean"`` on 2 of the pages;
 5. ``process_document`` on two of the photos (a quad page and the
-   page-less one; in memory, no stage files: the card machine has no
-   PIL), counted, timed per document and held against the host;
+   page-less one; in memory, no stage files: the path without its file
+   I/O), counted, timed per document and held against the host;
 6. ``scan_stream`` over 4 batches of the 8 photos (counted), timed in
    turns against a loop of ``scan_batch`` calls and against the stream
    without its threads (img/s), and ``scan_batch(pipeline_chunk=4)``,
@@ -148,7 +149,29 @@ Phases (any failure raises and the exit code is non-zero):
    ``_segment_and_final``); ``auto_categorize`` on the scenes, a night
    scene and the page; card against host for every output (the presets'
    and appliers' first two scenes, DOCUMENT's first; the NLM's outputs
-   within NLM_TOL, each later stage on the card's previous one equal).
+   within NLM_TOL, each later stage on the card's previous one equal);
+14. the CLIs on PNG files: a 1200x1600 document photo, a 1280x963
+   morph_seq photo, 8 night and 8 landscape scenes of 1280x853 and
+   ``scene_mix(0)`` written as PNG; ``io/png.py``'s encode and decode of
+   the photo timed (and PIL's, where it imports); where PIL imports, the
+   face CLI (``--noise-type gaussian``; its output is a JPEG) first; then,
+   with PIL's import made to fail, so that every file goes through
+   ``io/png.py`` as on a machine without PIL, the five PNG CLIs: each
+   ``main(argv)`` run three times (cold, then twice warm), the launch
+   counters reset just before each run and read just after: morphseq,
+   night ``--mode rgb`` and ``--mode gray`` with ``--histograms`` (one
+   call a scene), landscape on the folder (``--seed 0``), docscan
+   ``--gui-preset --profile``, classify on the mix; any ``FAILED`` line
+   fails; each run's wall ms an image split into reading files, writing
+   files (after a synchronize) and the rest (device work and host glue),
+   MP/s, launches; every written PNG against the same entry point called
+   in memory on the card (equal), night rgb and docscan on one input each
+   also with ``--device cpu`` (card vs host as phases 9 and 5); then the
+   build cache: the built libraries copied into a fresh directory and
+   ``python -m tpuimage_torch.cli.morphseq`` run in a new process with
+   ``TPUIMAGE_XLA_CACHE`` there, PIL hidden and no compiler on its PATH
+   or under its CUDA_HOME: it must load the kernels' library from there
+   and write the same files; the cold process's wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record (all twelve kernels, each launched on
@@ -157,6 +180,7 @@ tpuimage_torch/_build/.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -258,6 +282,17 @@ CLASSIFY_KERNELS = ("hist256", "rank_extract", "hough_votes")
 ROUTE_KERNELS = ("hist256", "rank_extract", "hough_votes", "rgb_to_lab", "clahe_apply",
                  "bilateral", "gaussian_blur_u8", "gauss_chain", "blackhat_rect",
                  "inkmask_weighted")
+# the CLIs' paths (phase 14): the kernels the table in PERF.md gives each
+CLI_KERNELS = {"morphseq": ("gray_erode3", "hist256", "binary_close3"),
+               "night rgb": ("rgb_to_lab", "hist256", "clahe_apply"),
+               "night gray": ("hist256", "clahe_apply"),
+               "landscape": ("bilateral", "gaussian_blur_u8", "rgb_to_lab", "hist256",
+                             "clahe_apply"),
+               "docscan": ("bilateral", "rank_extract", "hough_votes", "gauss_chain",
+                           "blackhat_rect", "hist256", "inkmask_weighted"),
+               "classify": ROUTE_KERNELS,
+               "face": ("hist256", "bilateral", "gaussian_blur_u8", "rgb_to_lab",
+                        "clahe_apply")}
 
 
 def _nvidia_smi() -> str:
@@ -939,6 +974,343 @@ def _notebook_phase(dev, tables, records: dict, launches: dict, cudnn_tf32: bool
     del scenes_d, doc_d, doc_photo_d, den, cl, sharp, gray, deblurred, seg, final, doc_edges
 
 
+class _IOClock:
+    """Times the port's file reads and writes inside a CLI run: wraps
+    ``imageio.load_image_rgb`` and ``imageio.save_image`` in every module of
+    the port that holds them, each write after a synchronize (the device
+    work a write waits on is not counted as writing; the copy to the host
+    is). Used only to split a run's wall time."""
+
+    def __init__(self):
+        self.read = self.write = 0.0
+        self._patched = []
+
+    def __enter__(self):
+        from tpuimage_torch.io import imageio
+        load, save = imageio.load_image_rgb, imageio.save_image
+
+        def timed_load(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return load(*args, **kwargs)
+            finally:
+                self.read += time.perf_counter() - t0
+
+        def timed_save(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return save(*args, **kwargs)
+            finally:
+                self.write += time.perf_counter() - t0
+
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("tpuimage_torch"):
+                for name, orig, new in (("load_image_rgb", load, timed_load),
+                                        ("save_image", save, timed_save)):
+                    if getattr(mod, name, None) is orig:
+                        setattr(mod, name, new)
+                        self._patched.append((mod, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self._patched:
+            setattr(mod, name, orig)
+
+
+def _cli_run(cli: str, argvs) -> tuple:
+    """One run of a CLI's main() over ``argvs`` (one call each), the
+    launch counters reset just before and read just after: (wall s, read
+    s, write s, launch counts, what it printed). Fails on a FAILED line."""
+    import contextlib
+    import importlib
+    import io
+    from tpuimage_torch.ops import kernels
+    main = importlib.import_module(f"tpuimage_torch.cli.{cli}").main
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    clock = _IOClock()
+    t0 = time.perf_counter()
+    with clock, contextlib.redirect_stdout(out):
+        for argv in argvs:
+            main(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    failed = [ln for ln in out.getvalue().splitlines() if "FAILED" in ln]
+    if failed:
+        raise AssertionError(f"{cli}: {failed}")
+    return wall, clock.read, clock.write, counts, out.getvalue()
+
+
+def _png_equal(what: str, path: str, tensor: torch.Tensor) -> None:
+    from tpuimage_torch.io.png import read_png
+    got, want = read_png(path), tensor.cpu().numpy()
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {os.path.basename(path)} differs from the in-memory "
+                             f"result on the card")
+
+
+@contextlib.contextmanager
+def _without_pil():
+    """PIL's import fails inside (its ``sys.modules`` entries set to None),
+    as on a machine without PIL: the port's image I/O then takes
+    ``io/png.py``."""
+    saved = {m: sys.modules[m] for m in list(sys.modules) if m.split(".")[0] == "PIL"}
+    for m in ("PIL", "PIL.Image", *saved):
+        sys.modules[m] = None
+    try:
+        yield
+    finally:
+        for m in [m for m in sys.modules if m.split(".")[0] == "PIL"]:
+            del sys.modules[m]
+        sys.modules.update(saved)
+
+
+def _cli_record(label: str, cli: str, argvs, imgs, launches: dict) -> dict:
+    """Three runs of a CLI (cold, then twice warm), each launching its
+    path's kernels; the warm runs' ms an image split into reading,
+    writing and the rest; the first run's launches added to ``launches``."""
+    mp = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
+    runs = [_cli_run(cli, argvs) for _ in range(3)]
+    for r in runs:
+        _launched(f"cli {label}", r[3], CLI_KERNELS[label])
+    for k_, v in runs[0][3].items():
+        launches[k_] += v
+    n, warm = len(imgs), runs[1:]
+    wall = statistics.mean(r[0] for r in warm)
+    read = statistics.mean(r[1] for r in warm)
+    write = statistics.mean(r[2] for r in warm)
+    rec = {"images": n, "megapixels": mp, "cold_ms": runs[0][0] * 1e3,
+           "warm_ms": [r[0] * 1e3 for r in warm], "ms_per_image": wall * 1e3 / n,
+           "read_ms_per_image": read * 1e3 / n, "write_ms_per_image": write * 1e3 / n,
+           "device_and_glue_ms_per_image": (wall - read - write) * 1e3 / n,
+           "io_share": (read + write) / wall, "mp_per_s": mp / wall,
+           "launches": {k_: v for k_, v in runs[0][3].items() if v}}
+    print(f"cli {label}: {n} image(s), {mp:.3f} MP; cold {rec['cold_ms']:.1f} ms, warm "
+          f"{rec['warm_ms'][0]:.1f} / {rec['warm_ms'][1]:.1f} ms = "
+          f"{rec['ms_per_image']:.1f} ms an image (reading {rec['read_ms_per_image']:.1f}, "
+          f"device and glue {rec['device_and_glue_ms_per_image']:.1f}, writing "
+          f"{rec['write_ms_per_image']:.1f}; I/O {rec['io_share']:.1%}), "
+          f"{rec['mp_per_s']:.2f} MP/s (host clock, each run ended by a synchronize)")
+    print("\n".join(f"  | {ln}" for ln in runs[-1][4].splitlines()[:12]))
+    return rec
+
+
+def _codec_ms(encode, decode, reps: int = 3) -> tuple:
+    """Median host ms of one encode and one decode."""
+    enc, dec = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        encode()
+        enc.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        decode()
+        dec.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(enc), statistics.median(dec)
+
+
+def _cli_phase(dev, launches: dict) -> None:
+    """Phase 14: the CLIs on PNG files (the module docstring, item 14)."""
+    import shutil
+    import tempfile
+    from tpuimage_torch import synth
+    from tpuimage_torch.io.png import read_png, write_png
+    from tpuimage_torch.pipelines import face
+
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} imports here"
+    except ImportError:
+        PIL, pil = None, "PIL is absent here"
+    print(f"{pil}; the PNG CLIs run with PIL's import made to fail, so that their files go "
+          f"through tpuimage_torch/io/png.py as on a machine without PIL")
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        def j(*parts):
+            return os.path.join(work, *parts)
+
+        for sub in ("night", "land", "mix"):
+            os.makedirs(j(sub))
+        t0 = time.perf_counter()
+        # inputs at zlib level 1: writing them is set-up, not a CLI's time
+        doc = synth.document_photo(1400, *PHOTO)
+        write_png(j("doc.png"), doc, 1)
+        morph = synth.document_photo(1401, *MORPH)
+        write_png(j("morph.png"), morph, 1)
+        scenes = [synth.night_scene(1410 + i, *NIGHT) for i in range(N_REQUESTS)]
+        lands = [synth.landscape_scene(1420 + i, *NIGHT) for i in range(N_REQUESTS)]
+        for i in range(N_REQUESTS):
+            write_png(j("night", f"s{i}.png"), scenes[i], 1)
+            write_png(j("land", f"s{i}.png"), lands[i], 1)
+        mix = synth.scene_mix(0)
+        mix_files = [j("mix", f"{i}_{kind}.png") for i, (kind, _) in enumerate(mix)]
+        for f, (_, rgb) in zip(mix_files, mix):
+            write_png(f, rgb, 1)
+        print(f"inputs made and written as PNG in {time.perf_counter() - t0:.1f} s")
+
+        summary = {}
+        enc, dec = _codec_ms(lambda: write_png(j("codec.png"), doc, 6),
+                             lambda: read_png(j("codec.png")))
+        summary["png_codec_1200x1600_rgb_ms"] = {"encode_zlib6": enc, "decode": dec}
+        print(f"io/png.py on this host, the {PHOTO[1]}x{PHOTO[0]} RGB photo: encode at zlib 6 "
+              f"{enc:.1f} ms, decode {dec:.1f} ms (median of 3; "
+              f"{os.path.getsize(j('codec.png')) / 2 ** 20:.2f} MiB)")
+        if PIL is not None:
+            from PIL import Image
+            enc, dec = _codec_ms(lambda: Image.fromarray(doc).save(j("codec_pil.png")),
+                                 lambda: np.asarray(Image.open(j("codec_pil.png"))))
+            summary["pil_1200x1600_rgb_ms"] = {"encode_default": enc, "decode": dec}
+            print(f"PIL on this host, the same photo: encode (its default, zlib 6) {enc:.1f} "
+                  f"ms, decode {dec:.1f} ms (median of 3)")
+            portrait = synth.portrait(1402, *FACE)[0]
+            write_png(j("portrait.png"), portrait, 1)
+            summary["face"] = _cli_record(
+                "face", "face", [[j("portrait.png"), "--out", j("o_face"), "--noise-type",
+                                  "gaussian"]], [portrait], launches)
+        else:
+            print("face CLI not run: its enhanced_face.jpg is a JPEG, which needs PIL; "
+                  "phase 11 drives enhance_face on the card")
+
+        night_files = [j("night", f"s{i}.png") for i in range(N_REQUESTS)]
+        specs = [
+            ("morphseq", "morphseq", [[j("morph.png"), "--out", j("o_morph")]], [morph]),
+            ("night rgb", "night", [[f, "--out", j("o_nrgb", str(i)), "--histograms"]
+                                    for i, f in enumerate(night_files)], scenes),
+            ("night gray", "night", [[f, "--out", j("o_ngray", str(i)), "--histograms",
+                                      "--mode", "gray"] for i, f in enumerate(night_files)],
+             scenes),
+            ("landscape", "landscape", [[j("land"), "--out", j("o_land"), "--seed", "0"]], lands),
+            ("docscan", "docscan", [[j("doc.png"), "--out", j("o_doc"), "--gui-preset",
+                                     "--profile"]], [doc]),
+            ("classify", "classify", [[*mix_files, "--out", j("o_mix")]],
+             [rgb for _, rgb in mix]),
+        ]
+        with _without_pil():
+            from tpuimage_torch.io import imageio
+            if imageio._pil_image() is not None:
+                raise AssertionError("PIL still imports: the PNG codec would not be used")
+            for label, cli, argvs, imgs in specs:
+                summary[label] = _cli_record(label, cli, argvs, imgs, launches)
+            _cli_checks(dev, j, doc, morph, scenes, lands, mix, mix_files, summary)
+        if PIL is not None:
+            res = face.enhance_face(torch.from_numpy(portrait).to(dev), noise_type="gaussian")
+            for k_ in ("skin_mask", "skin_enhanced", "features_popped"):
+                _png_equal("cli face", j("o_face", f"face_{k_}.png"), res[k_])
+            print("cli face: its three PNGs equal enhance_face called in memory on the card")
+        print("cli phase: " + json.dumps(summary))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _cli_checks(dev, j, doc, morph, scenes, lands, mix, mix_files, summary: dict) -> None:
+    """Phase 14's checks of the PNG CLIs' files: each against its entry
+    point in memory on the card, two against the host, and the build
+    cache in a new process."""
+    import shutil
+    from tpuimage_torch import native
+    from tpuimage_torch.classify.router import classify_and_enhance
+    from tpuimage_torch.io.png import read_png
+    from tpuimage_torch.ops import histogram, kernels
+    from tpuimage_torch.ops.color import rgb_to_gray
+    from tpuimage_torch.pipelines import docscan, landscape, morphseq, night
+
+    def on_card(a):
+        return torch.from_numpy(a).to(dev)
+
+    # every written file against the same entry point in memory on the card
+
+    st_m = morphseq.morphseq_stages(on_card(morph))
+    for fname, key in morphseq._STAGE_FILES:
+        _png_equal("cli morphseq", j("o_morph", fname), st_m[key])
+    _png_equal("cli morphseq", j("o_morph", "morphseq_closed.png"), st_m["step4_closed"])
+    for i, rgb in enumerate(scenes):
+        x = on_card(rgb)
+        for sub, st in (("o_nrgb", night.night_rgb(x)),
+                        ("o_ngray", night.night_gray(rgb_to_gray(x)))):
+            for stage, t in st.items():
+                _png_equal(f"cli night {sub}", j(sub, str(i), f"night_{stage}.png"), t)
+                hist = np.loadtxt(j(sub, str(i), f"night_{stage}_hist.csv"), dtype=np.int64)
+                g = t if t.dim() == 2 else rgb_to_gray(t)
+                if hist.shape != (256,) or not np.array_equal(
+                        hist, histogram.hist256(g).cpu().numpy()):
+                    raise AssertionError(f"cli night {sub} {i}: the {stage} histogram CSV")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for i, rgb in enumerate(lands):
+        res = landscape.landscape_eval_step(on_card(rgb), generator=gen)
+        for k_ in ("enhanced", "degraded", "restored"):
+            _png_equal("cli landscape", j("o_land", f"s{i}_{k_}.png"), res[k_])
+    with open(j("o_land", "landscape_metrics.csv")) as fh:
+        if len(fh.read().splitlines()) != N_REQUESTS + 1:
+            raise AssertionError("cli landscape: the metrics CSV lacks rows")
+    res = docscan.process_document(on_card(doc), out_dir=None,
+                                   config=docscan.GUI_DOCUMENT_CONFIG)
+    _png_equal("cli docscan", j("o_doc", "scan_03_warped.png"), res["warped"])
+    for fname, key in docscan._STAGE_FILES:
+        _png_equal("cli docscan", j("o_doc", fname), res["stages"][key])
+    if len([f for f in os.listdir(j("o_doc")) if f.startswith("scan_")]) != 10:
+        raise AssertionError(f"cli docscan: {sorted(os.listdir(j('o_doc')))}")
+    for f, (_, rgb) in zip(mix_files, mix):
+        label, _, out = classify_and_enhance(on_card(rgb))
+        stem = os.path.splitext(os.path.basename(f))[0]
+        _png_equal("cli classify", j("o_mix", f"{stem}_{label}_enhanced.png"), out)
+    print("cli: every written PNG equals its entry point called in memory on the card")
+
+    # card against host: night rgb on one scene, docscan on the photo, each CLI on the CPU
+    _cli_run("night", [[j("night", "s0.png"), "--out", j("h_nrgb"), "--histograms",
+                        "--device", "cpu"]])
+    for stage in ("original", "filtered", "enhanced"):
+        _card_equals_host(f"cli night rgb {stage} (files)",
+                          torch.from_numpy(read_png(j("o_nrgb", "0", f"night_{stage}.png"))),
+                          torch.from_numpy(read_png(j("h_nrgb", f"night_{stage}.png"))),
+                          NIGHT_RGB_TOL if stage == "enhanced" else (0, 0.0))
+    _cli_run("docscan", [[j("doc.png"), "--out", j("h_doc"), "--gui-preset",
+                          "--device", "cpu"]])
+    card_bin, host_bin = (read_png(j(d, "scan_08_clean.png")) for d in ("o_doc", "h_doc"))
+    frac = float((card_bin != host_bin).mean()) if card_bin.shape == host_bin.shape else 1.0
+    if frac >= BINARY_TOL:
+        raise AssertionError(f"cli docscan card vs host: {frac} of binary pixels differ")
+    print(f"card vs host, cli docscan scan_08_clean.png: {frac:.6f} of binary pixels differ "
+          f"(limit {BINARY_TOL})")
+
+    # the build cache: the built libraries copied into a fresh directory; a
+    # new process with TPUIMAGE_XLA_CACHE there loads them, with no nvcc or
+    # g++ to be found (a build would fail)
+    cache_dir, empty = j("build_cache"), j("no_compilers")
+    os.makedirs(cache_dir)
+    os.makedirs(empty)
+    native.load_native()
+    for so in (kernels.build(), native._build()):
+        shutil.copy2(so, cache_dir)
+    before = sorted(os.listdir(cache_dir))
+    code = ("import json, runpy, sys\n"
+            "sys.modules['PIL'] = sys.modules['PIL.Image'] = None\n"
+            "runpy.run_module('tpuimage_torch.cli.morphseq', run_name='__main__', "
+            "alter_sys=True)\n"
+            "from tpuimage_torch.ops import kernels\n"
+            "print(json.dumps({'kernels_library': kernels._lib._name}))\n")
+    env = dict(os.environ, TPUIMAGE_XLA_CACHE=cache_dir, CUDA_HOME=empty, PATH=empty,
+               PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code, j("morph.png"), "--out", j("o_cached")],
+                       env=env, cwd=HERE, capture_output=True, text=True, timeout=300)
+    cold_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"cached-build process failed:\n{r.stdout}\n{r.stderr[-3000:]}")
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])["kernels_library"]
+    if os.path.dirname(loaded) != cache_dir or sorted(os.listdir(cache_dir)) != before:
+        raise AssertionError(f"cached-build process: loaded {loaded}, cache now "
+                             f"{sorted(os.listdir(cache_dir))}")
+    for fname, key in morphseq._STAGE_FILES:
+        _png_equal("cli morphseq (cached build)", j("o_cached", fname), st_m[key])
+    print(f"build cache: python -m tpuimage_torch.cli.morphseq in a new process with "
+          f"TPUIMAGE_XLA_CACHE={os.path.basename(cache_dir)}/ loaded "
+          f"{os.path.basename(loaded)} from there, no compiler on its PATH or CUDA_HOME; "
+          f"the cold process took {cold_s:.2f} s (wall, interpreter start to exit)")
+    summary["cached_build_cold_process_s"] = cold_s
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1393,7 +1765,7 @@ def main() -> int:
 
     # --- 5. process_document: DocScanner's one-document path -----------------
     print(f"[phase 5 at {time.perf_counter() - t_start:.1f} s]")
-    # in-memory photos and no out_dir: the card machine has no PIL
+    # in-memory photos and no out_dir: the path without its file I/O
     docs = [tilted, N_REQUESTS - 1]                      # a quad page and a use-whole one
     for i in docs:
         docscan.process_document(inputs[i], out_dir=None, config=cfg, device=dev)  # warm-up
@@ -2131,6 +2503,10 @@ def main() -> int:
     # --- 13. the notebook pipelines and presets ---------------------------------
     print(f"[phase 13 at {time.perf_counter() - t_start:.1f} s]")
     _notebook_phase(dev, tables, records, launches, cudnn_tf32)
+
+    # --- 14. the CLIs on PNG files ----------------------------------------------
+    print(f"[phase 14 at {time.perf_counter() - t_start:.1f} s]")
+    _cli_phase(dev, launches)
     print(f"[phases done at {time.perf_counter() - t_start:.1f} s]")
 
     torch.cuda.synchronize()

@@ -1303,3 +1303,116 @@ def test_notebook_modules_and_presets_on_card_equal_host(cuda_device):
     for c, h in zip(docrestore._segment_and_final(gray),
                     docrestore._segment_and_final(gray.cpu())):
         assert torch.equal(c.cpu(), h)
+
+
+# --- the CLIs on the card: PNG files through io/png.py where PIL is absent ---
+
+def _cli(name: str, argv) -> dict:
+    """Run a port CLI on the card; its launch counts."""
+    import importlib
+    kernels.reset_launch_counts()
+    importlib.import_module(f"tpuimage_torch.cli.{name}").main(argv)
+    torch.cuda.synchronize()
+    return kernels.launch_counts()
+
+
+@pytest.fixture()
+def cli_env(monkeypatch):
+    """No build cache, a bounded device claim, and PIL's import made to
+    fail: the files go through io/png.py, as on a machine without PIL."""
+    import sys
+    monkeypatch.delenv("TPUIMAGE_XLA_CACHE", raising=False)
+    monkeypatch.setenv("TPUIMAGE_DEVICE_TIMEOUT", "60")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["morphseq", "night", "landscape", "docscan", "classify"])
+def test_cli_on_card_writes_its_entry_point(cuda_device, cli_env, tmp_path, name):
+    """Each PNG CLI on the card writes exactly what its in-memory entry
+    point computes on the card, and launches its path's kernels."""
+    from tpuimage_torch.classify.router import classify_and_enhance
+    from tpuimage_torch.io.png import read_png, write_png
+    from tpuimage_torch.pipelines import docscan, landscape, morphseq, night
+
+    out = tmp_path / "out"
+
+    def img(path):
+        return torch.from_numpy(read_png(path)).to(cuda_device)
+
+    def same(fname, tensor):
+        np.testing.assert_array_equal(read_png(out / fname), tensor.cpu().numpy(), err_msg=fname)
+
+    if name == "morphseq":
+        src = tmp_path / "m.png"
+        write_png(src, synth.document_photo(1, 963, 1280))
+        counts = _cli(name, [str(src), "--out", str(out)])
+        st = morphseq.morphseq_stages(img(src))
+        for fname, key in morphseq._STAGE_FILES:
+            same(fname, st[key])
+        same("morphseq_closed.png", st["step4_closed"])
+        need = ("gray_erode3", "hist256", "binary_close3")
+    elif name == "night":
+        src = tmp_path / "n.png"
+        write_png(src, synth.night_scene(2, 853, 1280))
+        counts = _cli(name, [str(src), "--out", str(out), "--histograms"])
+        st = night.night_rgb(img(src))
+        for stage, t in st.items():
+            same(f"night_{stage}.png", t)
+            hist = np.loadtxt(out / f"night_{stage}_hist.csv", dtype=np.int64)
+            np.testing.assert_array_equal(hist, histogram.hist256(color.rgb_to_gray(t)).cpu())
+        need = ("rgb_to_lab", "hist256", "clahe_apply")
+    elif name == "landscape":
+        src = tmp_path / "scenes"
+        src.mkdir()
+        for i in range(2):
+            write_png(src / f"s{i}.png", synth.landscape_scene(i, 427, 640))
+        counts = _cli(name, [str(src), "--out", str(out), "--seed", "5"])
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        for i in range(2):
+            res = landscape.landscape_eval_step(img(src / f"s{i}.png"), generator=gen)
+            for k in ("enhanced", "degraded", "restored"):
+                same(f"s{i}_{k}.png", res[k])
+        need = ("bilateral", "rgb_to_lab", "hist256", "clahe_apply", "gaussian_blur_u8")
+    elif name == "docscan":
+        src = tmp_path / "d.png"
+        write_png(src, synth.document_photo(3, 1600, 1200))
+        counts = _cli(name, [str(src), "--out", str(out), "--gui-preset"])
+        res = docscan.process_document(img(src), out_dir=None,
+                                       config=docscan.GUI_DOCUMENT_CONFIG)
+        same("scan_03_warped.png", res["warped"])
+        same("scan_08_clean.png", res["binary"])
+        assert len(list(out.glob("scan_*.png"))) == 10
+        need = ("bilateral", "rank_extract", "hough_votes", "gauss_chain", "blackhat_rect",
+                "hist256", "inkmask_weighted")
+    else:
+        files = []
+        for i, (kind, rgb) in enumerate(synth.scene_mix(0, 427, 640)[::2]):
+            files.append(tmp_path / f"{i}_{kind}.png")
+            write_png(files[-1], rgb)
+        counts = _cli(name, [*map(str, files), "--out", str(out)])
+        for f in files:
+            label, _, enhanced = classify_and_enhance(img(f))
+            same(f"{f.stem}_{label}_enhanced.png", enhanced)
+        need = ("hist256", "rank_extract", "hough_votes")
+    for k in need:
+        assert counts[k] > 0, (name, k, counts)
+
+
+@pytest.mark.cuda
+def test_png_round_trip_full_size(cuda_device, tmp_path):
+    """The codec on the card machine's host at DocScanner's photo size."""
+    from tpuimage_torch.io.png import read_png, write_png
+    rgb = synth.document_photo(5, 1600, 1200)
+    for arr in (rgb, np.ascontiguousarray(rgb[..., 1])):
+        for level in (1, 6):
+            write_png(tmp_path / "a.png", arr, level)
+            np.testing.assert_array_equal(read_png(tmp_path / "a.png"), arr)
+
+
+@pytest.mark.cuda
+def test_require_device_on_card(cuda_device):
+    from tpuimage_torch.runtime import health
+    health.require_device(60, what="a test", device="cuda")
+    assert health.device_available(60, device=cuda_device)

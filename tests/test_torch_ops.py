@@ -121,14 +121,27 @@ def test_subtract_max_u8(rng):
                                   _j(jarith.max_u8(jnp.asarray(a), jnp.asarray(b))))
 
 
-@pytest.mark.parametrize("scale", [255, 1])
+@pytest.mark.parametrize("shape", [(200, 300), (37, 61)])
+def test_lerp2_matches_jitted(shape):
+    """core.dtypes.lerp2 on LUT values and blend weights, against
+    tpuimage's jitted lerp2 (its fmas): exact."""
+    rng = np.random.default_rng(shape[1])
+    v = [rng.integers(0, 256, shape).astype(np.float32) for _ in range(4)]
+    xa = rng.random((1, shape[1]), dtype=np.float32)
+    ya = rng.random((shape[0], 1), dtype=np.float32)
+    ref = _j(jax.jit(jdtypes.lerp2)(*v, xa, ya))
+    np.testing.assert_array_equal(dtypes.lerp2(*map(_t, v), _t(xa), _t(ya)).numpy(), ref)
+
+
+@pytest.mark.parametrize("scale", [255, 1, 0.5, 1.5, 255 / 7])
 def test_divide_u8_full_domain(scale):
+    """Every byte pair, against tpuimage's jitted divide_u8: the integer
+    quotient at integer scales, the f32 path (XLA divides there, no
+    reciprocal product) at the others."""
     a, b = np.meshgrid(np.arange(256, dtype=np.uint8), np.arange(256, dtype=np.uint8))
-    np.testing.assert_array_equal(
-        arith.divide_u8(_t(a), _t(b), scale=scale).numpy(),
-        _j(jarith.divide_u8(jnp.asarray(a), jnp.asarray(b), scale=scale)))
-    with pytest.raises(NotImplementedError):
-        arith.divide_u8(_t(a), _t(b), scale=2.5)
+    jitted = jax.jit(functools.partial(jarith.divide_u8, scale=scale))
+    np.testing.assert_array_equal(arith.divide_u8(_t(a), _t(b), scale=scale).numpy(),
+                                  _j(jitted(jnp.asarray(a), jnp.asarray(b))))
 
 
 def test_normalize_minmax_per_plane(rng):

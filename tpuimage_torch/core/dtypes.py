@@ -27,6 +27,20 @@ def saturate_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0, 255).to(torch.uint8)
 
 
+def lerp2(v11, v12, v21, v22, xa, ya):
+    """Bilinear blend ``(v11*(1-xa)+v12*xa)*(1-ya) + (v21*(1-xa)+v22*xa)*ya``
+    of f32 tensors, as tpuimage's jitted ``lerp2`` computes it: XLA's CPU
+    compiler fuses one product of each add into an fma (``v12*xa``,
+    ``v21*(1-xa)`` and the top row's ``*(1-ya)``; found by trying each form
+    against the jitted function), each rounded once (:func:`fma_f32`).
+    Called outside ``jit``, tpuimage rounds every op, up to 3 ulp away."""
+    xa1 = 1.0 - xa
+    ya1 = 1.0 - ya
+    top = fma_f32(v12, xa, (v11 * xa1).double())
+    bottom = fma_f32(v21, xa1, (v22 * xa).double())
+    return fma_f32(top, ya1, (bottom * ya).double())
+
+
 def trunc_u8(x: torch.Tensor) -> torch.Tensor:
     """``np.clip(x, 0, 255).astype(np.uint8)``: truncation, not cvRound."""
     return torch.clamp(x, 0, 255).to(torch.uint8)

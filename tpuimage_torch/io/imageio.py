@@ -1,11 +1,13 @@
-"""Host-side image I/O (PIL-backed) and stage-dump helpers (counterpart of
+"""Host-side image I/O and stage-dump helpers (counterpart of
 ``tpuimage.io.imageio``).
 
 In-memory images are RGB uint8 (H, W, 3) and gray (H, W) numpy arrays.
-PIL is imported inside the functions that read or write files, so the
-module imports on a machine without PIL (the card machine has none) and
-only those calls need it. Also carries the save-size presets of the
-reference's ``_compress_and_save``.
+Files go through PIL where it imports, so they are byte-equal to
+tpuimage's. Without PIL a ``.png`` goes through the port's own codec, ``io/png.py``: read as PIL's
+``convert("RGB")`` reads it (gray repeated into the three channels, alpha
+dropped), written lossless at the zlib level PIL would use. Any other
+extension then raises ImportError naming PIL. Also carries the save-size
+presets of the reference's ``_compress_and_save``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from tpuimage_torch.io import png
 
 COMPRESSION_PRESETS: Dict[str, dict] = {
     "FAST": {"jpg_quality": 95, "png_compression": 1, "optimize": False},
@@ -29,14 +33,45 @@ def ensure_dir(path: str) -> None:
         os.makedirs(path, exist_ok=True)
 
 
+def _pil_image():
+    """PIL's ``Image`` module, or None where PIL is not installed."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
+def _png_only(path, what: str) -> None:
+    if os.path.splitext(path)[1].lower() != ".png":
+        raise ImportError(f"{what} {path} needs PIL (Pillow), which is not installed; "
+                          f"without it only PNG files are read and written")
+
+
+def _png_level(compression: str | None) -> int:
+    """The zlib level PIL's PNG encoder takes: 9 with ``optimize``, else the
+    preset's ``png_compression``; 6 (zlib's default) without a preset."""
+    if compression is None:
+        return 6
+    p = COMPRESSION_PRESETS[compression]
+    return 9 if p["optimize"] else p["png_compression"]
+
+
 def load_image_rgb(path) -> np.ndarray:
     """Load as RGB uint8 (H, W, 3). Raises FileNotFoundError for a missing
     file."""
-    from PIL import Image
     if not os.path.exists(path):
         raise FileNotFoundError(f"Cannot load image: {path}")
-    with Image.open(path) as im:
-        return np.array(im.convert("RGB"), dtype=np.uint8)
+    Image = _pil_image()
+    if Image is not None:
+        with Image.open(path) as im:
+            return np.array(im.convert("RGB"), dtype=np.uint8)
+    _png_only(path, "reading")
+    a = png.read_png(path)
+    if a.ndim == 3 and a.shape[2] >= 3:
+        return np.ascontiguousarray(a[..., :3])
+    gray = a if a.ndim == 2 else a[..., 0]
+    return np.repeat(gray[..., None], 3, axis=-1)
 
 
 def load_image_gray(path) -> np.ndarray:
@@ -53,8 +88,12 @@ def _host(img) -> np.ndarray:
 def save_image(path, img, compression: str | None = None) -> None:
     """Save an RGB or gray uint8 array (or tensor, from any device).
     ``compression`` names a preset of COMPRESSION_PRESETS."""
-    from PIL import Image
     ensure_dir(os.path.dirname(path))
+    Image = _pil_image()
+    if Image is None:
+        _png_only(path, "writing")
+        png.write_png(path, _host(img), _png_level(compression))
+        return
     im = Image.fromarray(_host(img))
     ext = os.path.splitext(path)[1].lower()
     if compression is not None:
@@ -72,17 +111,20 @@ def save_image(path, img, compression: str | None = None) -> None:
 def compress_and_save(img, path, preset: str = "BALANCED") -> Tuple[float, float]:
     """Save ``img`` at ``path`` with a preset; returns (the size in MB of an
     uncompressed save, the size in MB of the saved file)."""
-    from PIL import Image
     arr = _host(img)
     ext = os.path.splitext(path)[1].lower()
+    Image = _pil_image()
+    if Image is None:
+        _png_only(path, "writing")
     with tempfile.NamedTemporaryFile(suffix=ext or ".png", delete=False) as tmp:
         temp_path = tmp.name
     try:
-        im = Image.fromarray(arr)
-        if ext in (".jpg", ".jpeg"):
-            im.save(temp_path, "JPEG", quality=100)
+        if Image is None:
+            png.write_png(temp_path, arr, 0)
+        elif ext in (".jpg", ".jpeg"):
+            Image.fromarray(arr).save(temp_path, "JPEG", quality=100)
         else:
-            im.save(temp_path, "PNG", compress_level=0)
+            Image.fromarray(arr).save(temp_path, "PNG", compress_level=0)
         original = os.path.getsize(temp_path) / (1024 * 1024)
         save_image(path, arr, compression=preset)
         compressed = os.path.getsize(path) / (1024 * 1024)

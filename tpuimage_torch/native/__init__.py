@@ -1,9 +1,11 @@
 """Native (C++) host-side helpers, loaded via ctypes: the quad fit's
-contour walk and segment rasterizer (``contours.cpp``) and the Haar
-cascade's level evaluator (``haar.cpp``).
+contour walk and segment rasterizer (``contours.cpp``), the Haar
+cascade's level evaluator (``haar.cpp``) and the PNG reader's row
+reconstruction (``png.cpp``).
 
-Both sources are built at first use with ``g++ -O3 -shared`` into one
-library under ``tpuimage_torch/_build/`` (named by a digest of the sources
+The sources are built at first use with ``g++ -O3 -shared`` into one
+library in ``BUILD_DIR`` (``tpuimage_torch/_build/`` unless
+``runtime.cache`` points it elsewhere; named by a digest of the sources
 and flags); every consumer keeps a pure-numpy fallback, so the package
 works where no compiler is present.
 """
@@ -17,8 +19,10 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-_SRCS = [Path(__file__).resolve().parent / name for name in ("contours.cpp", "haar.cpp")]
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+_SRCS = [Path(__file__).resolve().parent / name
+         for name in ("contours.cpp", "haar.cpp", "png.cpp")]
+# read when the library is built; runtime.cache may point it elsewhere first
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 
 def _flags() -> list:
@@ -43,10 +47,10 @@ def _build() -> Optional[Path]:
     flags = _flags()
     digest = hashlib.sha1(" ".join(flags).encode()
                           + b"".join(src.read_bytes() for src in _SRCS)).hexdigest()[:16]
-    so = _BUILD_DIR / f"libtpuimage_torch_host_{digest}.so"
+    so = BUILD_DIR / f"libtpuimage_torch_host_{digest}.so"
     if so.exists():
         return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     try:
         r = subprocess.run(["g++", *flags, *map(str, _SRCS), "-o", str(tmp)],
@@ -90,5 +94,8 @@ def load_native() -> Optional[ctypes.CDLL]:
                 ctypes.POINTER(ctypes.c_uint8), i64, i64, i64, i64, i64,
                 i32p, f32p, i32p, f32p, f32p, f32p, i32p, i64,
                 i32p, ctypes.POINTER(ctypes.c_double), i32p, i64]
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.tpuimage_png_unfilter.restype = None
+            lib.tpuimage_png_unfilter.argtypes = [u8p, u8p, i64, i64, i64, u8p]
             _lib = lib
     return _lib

@@ -24,14 +24,20 @@ def subtract_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return saturate_u8(i32(a) - i32(b))
 
 
-def divide_u8(a: torch.Tensor, b: torch.Tensor, scale: int = 1) -> torch.Tensor:
-    """cv2.divide on uint8 with an integer scale: dst = saturate(round(
-    a*scale/b)), b == 0 -> 0, as tpuimage's exact integer quotient with
-    round half to even. (tpuimage's f32 path for other scales is not
-    ported: DocScanner divides by 255.)"""
+def divide_u8(a: torch.Tensor, b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """cv2.divide: dst = saturate(round(a*scale/b)), b == 0 -> 0.
+
+    uint8 inputs with an integer scale take tpuimage's exact integer
+    quotient with round half to even. Other scales (and dtypes) take its
+    f32 path: ``f32(a) * scale`` rounded, then a true f32 division by b,
+    then cvRound; tpuimage's jitted program divides there too (no
+    reciprocal product), which the tests check on all byte pairs."""
     if not (a.dtype == torch.uint8 and b.dtype == torch.uint8
             and float(scale) == int(scale) and 0 <= int(scale) < (1 << 23)):
-        raise NotImplementedError("divide_u8 takes uint8 inputs and an integer scale")
+        bf = f32(b)
+        nz = bf != 0
+        q = f32(a) * float(scale) / torch.where(nz, bf, torch.ones_like(bf))
+        return saturate_u8(torch.where(nz, q, torch.zeros_like(q)))
     n = i32(a) * int(scale)
     d = i32(b)
     safe = torch.clamp(d, min=1)

@@ -43,6 +43,7 @@ from tpuimage_torch.ops.threshold import adaptive_threshold, threshold_binary
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+# read when the library is built; runtime.cache may point it elsewhere first
 BUILD_DIR = _PKG / "_build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -447,9 +447,10 @@ def process_document(input_path, out_dir: Optional[str] = "outputs",
     fallback), the post-warp stages. Returns ``{quad, warped, binary,
     use_whole, stages}`` (tensors on the device the stages ran on) and,
     with ``out_dir`` and ``save_stages``, writes tpuimage's stage files
-    ``scan_01_pre.png`` .. ``scan_08_clean.png`` there (writing needs
-    PIL). ``input_path``: an image path, or an RGB uint8 (H, W, 3) array
-    or tensor.
+    ``scan_01_pre.png`` .. ``scan_08_clean.png`` there (through PIL, or
+    without it through ``io/png.py``). ``input_path``: an image path (a
+    PNG, or any format PIL reads), or an RGB uint8 (H, W, 3) array or
+    tensor.
 
     device: as ``scan_batch``'s (default the card). ``space_mesh`` (the
     H-sharded post-warp) is not ported yet and raises
