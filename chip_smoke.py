@@ -157,7 +157,8 @@ Phases (any failure raises and the exit code is non-zero):
    face CLI (``--noise-type gaussian``; its output is a JPEG) first; then,
    with PIL's import made to fail, so that every file goes through
    ``io/png.py`` as on a machine without PIL, the five PNG CLIs: each
-   ``main(argv)`` run three times (cold, then twice warm), the launch
+   ``main(argv)`` run twice (cold, then warm; one warm run since phase 15
+   joined, to keep the script within half its time limit), the launch
    counters reset just before each run and read just after: morphseq,
    night ``--mode rgb`` and ``--mode gray`` with ``--histograms`` (one
    call a scene), landscape on the folder (``--seed 0``), docscan
@@ -171,7 +172,29 @@ Phases (any failure raises and the exit code is non-zero):
    ``python -m tpuimage_torch.cli.morphseq`` run in a new process with
    ``TPUIMAGE_XLA_CACHE`` there, PIL hidden and no compiler on its PATH
    or under its CUDA_HOME: it must load the kernels' library from there
-   and write the same files; the cold process's wall time.
+   and write the same files; the cold process's wall time;
+15. the sharded runtime (``runtime/mesh.py``, ``runtime/spatial.py``) on
+   a mesh of 4 shards on the one card, and on distinct cards where there
+   are several (the count is printed): ``docscan_post_warp_spatial``
+   under the GUI config on 8 A4 pages of 849x1200, on one 600-dpi A4 page
+   of 4960x7016 (35 MP), on a tilted page (the rotation runs) and under
+   the default config (the close runs), every stage equal to
+   ``docscan_post_warp`` on the card, and on two A4 pages to the host's;
+   ``docscan_post_warp_spatial_batch`` on a (data 2, space 2) mesh over
+   the 8 pages, tilted and flat mixed; ``night_gray_spatial`` and
+   ``night_rgb_spatial`` on 8 night scenes of 1280x856, equal to the
+   unsharded composition, and ``lab_to_rgb(impl="lut")`` card = host on
+   the whole 256^3 Lab grid; ``scan_batch(mesh=)`` on the 8 photos and on
+   11 (the pad runs), ``scan_stream(mesh=)`` over 4 batches and
+   ``process_document(space_mesh=)`` on 2 photos, each equal to its
+   unsharded call. The sharded deskew takes tpuimage's edge budget a
+   shard, so where the unsharded default budget overflows (the 35 MP page,
+   the page-less photo's desk) the unsharded run it is held to gets a
+   budget of every pixel; the default run's overflow is printed. Each path is counted (counters reset just before a
+   call and read just after) and printed beside its unsharded run: ms a
+   page (CUDA events, median of 3), launches, host reads (torch's sync
+   debug warnings), the bytes of the halo exchanges, gathers and
+   reductions, and the peak device memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record (all twelve kernels, each launched on
@@ -188,6 +211,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1069,11 +1093,11 @@ def _without_pil():
 
 
 def _cli_record(label: str, cli: str, argvs, imgs, launches: dict) -> dict:
-    """Three runs of a CLI (cold, then twice warm), each launching its
-    path's kernels; the warm runs' ms an image split into reading,
-    writing and the rest; the first run's launches added to ``launches``."""
+    """Two runs of a CLI (cold, then warm), each launching its path's
+    kernels; the warm run's ms an image split into reading, writing and
+    the rest; the first run's launches added to ``launches``."""
     mp = sum(im.shape[0] * im.shape[1] for im in imgs) / 1e6
-    runs = [_cli_run(cli, argvs) for _ in range(3)]
+    runs = [_cli_run(cli, argvs) for _ in range(2)]
     for r in runs:
         _launched(f"cli {label}", r[3], CLI_KERNELS[label])
     for k_, v in runs[0][3].items():
@@ -1089,7 +1113,7 @@ def _cli_record(label: str, cli: str, argvs, imgs, launches: dict) -> dict:
            "io_share": (read + write) / wall, "mp_per_s": mp / wall,
            "launches": {k_: v for k_, v in runs[0][3].items() if v}}
     print(f"cli {label}: {n} image(s), {mp:.3f} MP; cold {rec['cold_ms']:.1f} ms, warm "
-          f"{rec['warm_ms'][0]:.1f} / {rec['warm_ms'][1]:.1f} ms = "
+          f"{rec['warm_ms'][0]:.1f} ms = "
           f"{rec['ms_per_image']:.1f} ms an image (reading {rec['read_ms_per_image']:.1f}, "
           f"device and glue {rec['device_and_glue_ms_per_image']:.1f}, writing "
           f"{rec['write_ms_per_image']:.1f}; I/O {rec['io_share']:.1%}), "
@@ -1309,6 +1333,258 @@ def _cli_checks(dev, j, doc, morph, scenes, lands, mix, mix_files, summary: dict
           f"{os.path.basename(loaded)} from there, no compiler on its PATH or CUDA_HOME; "
           f"the cold process took {cold_s:.2f} s (wall, interpreter start to exit)")
     summary["cached_build_cold_process_s"] = cold_s
+
+
+MESH_SHARDS = 4                 # shards of the one-card mesh
+BIG_PAGE = (7016, 4960)         # an A4 page scanned at 600 dpi, height x width
+NIGHT_MESH = (856, 1280)        # night scenes whose height the 8 CLAHE tile rows divide
+POST_WARP_KERNELS = ("gauss_chain", "blackhat_rect", "hist256", "inkmask_weighted",
+                     "rank_extract", "hough_votes")
+
+
+def _host_reads(fn):
+    """fn's result and the number of synchronizing calls it made (reads
+    back to the host), counted as torch's sync debug warnings."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _mesh_stats(fn, n_items: int, reps: int = 3):
+    """A warm call, a counted call (its launches, host reads, collective
+    bytes and peak device memory above what was held before it), then the
+    ms an item (CUDA events, median of ``reps`` calls). Returns the
+    counted call's output and the numbers."""
+    from tpuimage_torch.ops import kernels
+    from tpuimage_torch.runtime import mesh
+    fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    mesh.reset_transfer_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, reads = _host_reads(fn)
+    torch.cuda.synchronize()
+    stats = {"launches": kernels.launch_counts(), "reads": reads,
+             "bytes": mesh.transfer_bytes(),
+             "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2 ** 20}
+    stats["ms"] = _cuda_ms(fn, reps=reps) / n_items
+    return out, stats
+
+
+def _mesh_line(what: str, unit: str, s: dict, u: dict) -> None:
+    print(f"{what}: sharded {s['ms']:.3f} vs unsharded {u['ms']:.3f} ms a {unit} (CUDA events, "
+          f"median of 3); a call: launches {sum(s['launches'].values())} vs "
+          f"{sum(u['launches'].values())}, host reads {s['reads']} vs {u['reads']}, bytes of "
+          f"the halo exchanges {s['bytes']['ppermute']}, gathers {s['bytes']['all_gather']}, "
+          f"reductions {s['bytes']['reduce']}; peak device memory {s['peak_mib']:.1f} vs "
+          f"{u['peak_mib']:.1f} MiB above what was held before")
+
+
+def _equal_stages(what: str, out: dict, ref: dict) -> None:
+    """Every stage of a sharded run equal to the unsharded one's."""
+    for k in ref:
+        a, b = out[k], ref[k].to(out[k].device)
+        if a.shape != b.shape or not torch.equal(a, b):
+            n = int((a != b).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"{what}: stage {k} differs from the unsharded run ({n} values)")
+
+
+def _mesh_phase(dev, launches: dict) -> None:
+    """Phase 15: the sharded runtime on the card (the module docstring,
+    item 15)."""
+    from tpuimage_torch import synth
+    from tpuimage_torch.ops import color, edges, histogram, hough
+    from tpuimage_torch.ops.median import median_blur
+    from tpuimage_torch.pipelines import docscan, night
+    from tpuimage_torch.runtime import mesh, spatial
+    t0 = time.perf_counter()
+    cfg = docscan.GUI_DOCUMENT_CONFIG
+    n_cards = torch.cuda.device_count()
+    space = mesh.make_mesh(MESH_SHARDS, ("space",), devices=[dev] * MESH_SHARDS)
+    others = []
+    if n_cards > 1:
+        others.append(mesh.make_mesh(4 if n_cards >= 4 else 2, ("space",)))
+    print(f"mesh phase: {n_cards} CUDA device(s); meshes {space}"
+          + "".join(f", {m}" for m in others))
+
+    def counted(path, stats, needed):
+        for k, v in _launched(path, stats["launches"], needed).items():
+            launches[k] += v
+
+    # 15.1 the post-warp H-sharded, page by page, on the 8 A4 pages
+    pages = torch.from_numpy(np.stack([
+        synth.page(100 + i, *PAGE, tilt_deg=3.0 if i % 2 else 0.0, rules=3 if i % 2 else 0)
+        for i in range(N_REQUESTS)])).to(dev)
+    outs, s = _mesh_stats(lambda: [spatial.docscan_post_warp_spatial(p, cfg, space)
+                                   for p in pages], N_REQUESTS)
+    counted(f"docscan_post_warp_spatial, {N_REQUESTS} A4 pages", s, POST_WARP_KERNELS)
+    refs, u = _mesh_stats(lambda: [docscan.docscan_post_warp(p, cfg) for p in pages],
+                          N_REQUESTS)
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        _equal_stages(f"A4 page {i}", o, r)
+    _mesh_line(f"docscan_post_warp_spatial on {MESH_SHARDS} shards, A4 {PAGE[1]}x{PAGE[0]}",
+               "page", s, u)
+    for m in others:
+        outs_m, s_m = _mesh_stats(lambda: [spatial.docscan_post_warp_spatial(p, cfg, m)
+                                           for p in pages], N_REQUESTS)
+        for i, (o, r) in enumerate(zip(outs_m, refs)):
+            _equal_stages(f"A4 page {i} on {m}", o, r)
+        _mesh_line(f"docscan_post_warp_spatial on {m.size} cards, A4 {PAGE[1]}x{PAGE[0]}",
+                   "page", s_m, u)
+    for i in range(2):
+        _equal_stages(f"A4 page {i}, card against the host's unsharded run",
+                      {k: v.cpu() for k, v in outs[i].items()},
+                      docscan.docscan_post_warp(pages[i].cpu(), cfg))
+    print(f"docscan_post_warp_spatial: every stage of the {N_REQUESTS} pages equal to "
+          f"docscan_post_warp on the card (and on {len(others)} multi-card mesh(es)), "
+          "and on 2 pages to the host's; angles "
+          f"{[round(float(r['deskew_angle']), 3) for r in refs]}")
+
+    # 15.2 the rotation and the close
+    tilted = torch.from_numpy(synth.page(31, *PAGE, tilt_deg=4.0, rules=3)).to(dev)
+    for what, page, c in (("tilted A4 page (the rotation)", tilted, cfg),
+                          ("A4 page, default config (the close)", pages[0],
+                           docscan.DocScanConfig())):
+        ref = docscan.docscan_post_warp(page, c)
+        if page is tilted and float(ref["deskew_angle"]) == 0.0:
+            raise AssertionError("the tilted page's angle is 0: the rotation did not run")
+        for m in [space] + others:
+            _equal_stages(f"{what} on {m}", spatial.docscan_post_warp_spatial(page, c, m), ref)
+        print(f"docscan_post_warp_spatial, {what}: every stage equal to the unsharded run "
+              f"(angle {float(ref['deskew_angle']):.3f})")
+
+    # 15.3 one 600-dpi A4 page, 35 MP
+    big = torch.from_numpy(synth.page(7, *BIG_PAGE, tilt_deg=2.0, rules=3)).to(dev)
+    # the unsharded program's default edge budget (at most 524,288 edges a
+    # page) may not hold this page's edges, where each shard's own budget
+    # does (tpuimage's rule): the sharded run is held to the unsharded one
+    # with a budget of every pixel, as its overflow warning asks
+    out, s = _mesh_stats(lambda: spatial.docscan_post_warp_spatial(big, cfg, space), 1)
+    counted(f"docscan_post_warp_spatial, {BIG_PAGE[1]}x{BIG_PAGE[0]}", s, POST_WARP_KERNELS)
+    whole = dataclasses.replace(cfg, deskew_max_edges=BIG_PAGE[0] * BIG_PAGE[1])
+    ref, u = _mesh_stats(lambda: docscan.docscan_post_warp(big, whole), 1)
+    default = docscan.docscan_post_warp(big, cfg)
+    n_edges = int((edges.canny(ref["weighted"], cfg.canny_low, cfg.canny_high) > 0).sum())
+    _equal_stages("the 35 MP page", out, ref)
+    _mesh_line(f"docscan_post_warp_spatial on {MESH_SHARDS} shards, {BIG_PAGE[1]}x{BIG_PAGE[0]}",
+               "page", s, u)
+    for m in others:
+        out_m, s_m = _mesh_stats(lambda: spatial.docscan_post_warp_spatial(big, cfg, m), 1)
+        _equal_stages(f"the 35 MP page on {m}", out_m, ref)
+        _mesh_line(f"docscan_post_warp_spatial on {m.size} cards, {BIG_PAGE[1]}x{BIG_PAGE[0]}",
+                   "page", s_m, u)
+        del out_m
+    print(f"the 35 MP page ({n_edges} edges): every stage equal to the unsharded run with a "
+          f"budget of every pixel (angle {float(ref['deskew_angle']):.3f}, overflow "
+          f"{bool(out['deskew_overflow'])}); at its default budget of "
+          f"{hough.default_max_edges(*BIG_PAGE)} edges the unsharded run's overflow is "
+          f"{bool(default['deskew_overflow'])}, its angle "
+          f"{float(default['deskew_angle']):.3f}")
+    del big, out, ref, default
+
+    # 15.4 the data x space batch form
+    grid = mesh.make_mesh(4, ("data", "space"), (2, 2), devices=[dev] * 4)
+    out, s = _mesh_stats(lambda: spatial.docscan_post_warp_spatial_batch(pages, cfg, grid),
+                         N_REQUESTS)
+    counted("docscan_post_warp_spatial_batch", s, POST_WARP_KERNELS)
+    ref, u = _mesh_stats(lambda: docscan.docscan_post_warp_batch(pages, cfg), N_REQUESTS)
+    _equal_stages("docscan_post_warp_spatial_batch", out, ref)
+    angles = out["deskew_angle"].tolist()
+    if all(a == 0.0 for a in angles) or all(a != 0.0 for a in angles):
+        raise AssertionError(f"the batch does not mix tilted and flat pages: {angles}")
+    _mesh_line(f"docscan_post_warp_spatial_batch on (data 2, space 2), {N_REQUESTS} A4 pages",
+               "page", s, u)
+    del pages, outs, refs, out, ref
+
+    # 15.5 night, gray and RGB
+    scenes = torch.from_numpy(np.stack([synth.night_scene(400 + i, *NIGHT_MESH)
+                                        for i in range(N_REQUESTS)])).to(dev)
+    gray = color.rgb_to_gray(scenes)
+    out, s = _mesh_stats(lambda: spatial.night_gray_spatial(gray, space), N_REQUESTS)
+    counted("night_gray_spatial", s, ("hist256", "clahe_apply"))
+    ref, u = _mesh_stats(lambda: night.night_gray(gray), N_REQUESTS)
+    _equal_stages("night_gray_spatial", out, ref)
+    _mesh_line(f"night_gray_spatial, 8 scenes {NIGHT_MESH[1]}x{NIGHT_MESH[0]}", "scene", s, u)
+
+    def night_rgb_lut(x):
+        filt = median_blur(x, 3, channels_last=True).contiguous()
+        lab = color.rgb_to_lab(filt)
+        l_enh = histogram.clahe(lab[..., 0], clip_limit=night.CLIP_LIMIT, tiles_x=night.TILES,
+                                tiles_y=night.TILES)
+        return {"original": x, "filtered": filt, "enhanced": color.lab_to_rgb(
+            torch.cat([l_enh[..., None], lab[..., 1:]], dim=-1), impl="lut")}
+
+    out, s = _mesh_stats(lambda: spatial.night_rgb_spatial(scenes, space), N_REQUESTS)
+    counted("night_rgb_spatial", s, ("rgb_to_lab", "hist256", "clahe_apply"))
+    ref, u = _mesh_stats(lambda: night_rgb_lut(scenes), N_REQUESTS)
+    _equal_stages("night_rgb_spatial", out, ref)
+    for m in others:
+        _equal_stages(f"night_rgb_spatial on {m}", spatial.night_rgb_spatial(scenes[:2], m),
+                      night_rgb_lut(scenes[:2]))
+    _mesh_line(f"night_rgb_spatial, 8 scenes {NIGHT_MESH[1]}x{NIGHT_MESH[0]}", "scene", s, u)
+    lab_grid = torch.stack(torch.meshgrid(*[torch.arange(256, dtype=torch.uint8)] * 3,
+                                          indexing="ij"), dim=-1).reshape(-1, 3)
+    card = color.lab_to_rgb(lab_grid.to(dev), impl="lut").cpu()
+    if not torch.equal(card, color.lab_to_rgb(lab_grid, impl="lut")):
+        raise AssertionError("lab_to_rgb(impl='lut') differs card vs host")
+    print("night_gray_spatial / night_rgb_spatial equal to the unsharded composition; "
+          "lab_to_rgb(impl='lut') card = host on all 16,777,216 Lab triples")
+    del scenes, gray, out, ref, lab_grid, card
+
+    # 15.6 the entry points
+    photos = [synth.document_photo(300 + i, *PHOTO, tilt_deg=3.0 if i == 1 else 0.0,
+                                   rules=3 if i == 1 else 0, with_page=i != N_REQUESTS - 1)
+              for i in range(N_REQUESTS)]
+    data = mesh.make_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    for n_req in (N_REQUESTS, N_REQUESTS + 3):
+        reqs = (photos + photos)[:n_req]
+        res, s = _mesh_stats(lambda: docscan.scan_batch(reqs, cfg, mesh=data), n_req)
+        counted(f"scan_batch(mesh=), {n_req} photos", s,
+                POST_WARP_KERNELS)
+        ref, u = _mesh_stats(lambda: docscan.scan_batch(reqs, cfg, device=dev), n_req)
+        for i, (a, b) in enumerate(zip(res, ref, strict=True)):
+            if not _same_result(a, b):
+                raise AssertionError(f"scan_batch(mesh=) request {i} of {n_req} differs")
+        _mesh_line(f"scan_batch(mesh=) over {MESH_SHARDS} shards, {n_req} photos "
+                   f"{PHOTO[1]}x{PHOTO[0]}", "request", s, u)
+    mesh.reset_transfer_bytes()
+    from tpuimage_torch.ops import kernels
+    kernels.reset_launch_counts()
+    streamed = list(docscan.scan_stream([photos] * 4, cfg, mesh=data))
+    torch.cuda.synchronize()
+    for k, v in _launched("scan_stream(mesh=), 4 batches", kernels.launch_counts(),
+                          POST_WARP_KERNELS).items():
+        launches[k] += v
+    base = docscan.scan_batch(photos, cfg, device=dev)
+    for res in streamed:
+        for i, (a, b) in enumerate(zip(res, base, strict=True)):
+            if not _same_result(a, b):
+                raise AssertionError(f"scan_stream(mesh=) request {i} differs")
+    for i in (1, N_REQUESTS - 1):
+        kernels.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")      # no overflow warning from the sharded run
+            a = docscan.process_document(photos[i], out_dir=None, config=cfg, space_mesh=space)
+        torch.cuda.synchronize()
+        for k, v in _launched(f"process_document(space_mesh=), photo {i}",
+                              kernels.launch_counts(),
+                              ("bilateral",) + POST_WARP_KERNELS).items():
+            launches[k] += v
+        # the budget of every pixel, as for the 35 MP page: the page-less
+        # photo's desk texture may overflow the unsharded default budget
+        whole = dataclasses.replace(cfg, deskew_max_edges=PHOTO[0] * PHOTO[1])
+        b = docscan.process_document(photos[i], out_dir=None, config=whole, device=dev)
+        _equal_stages(f"process_document(space_mesh=) photo {i}", a["stages"], b["stages"])
+    print(f"scan_batch(mesh=) on {N_REQUESTS} and {N_REQUESTS + 3} photos, scan_stream(mesh=) "
+          "over 4 batches and process_document(space_mesh=) on 2 photos: each equal to its "
+          "unsharded call")
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2507,6 +2783,10 @@ def main() -> int:
     # --- 14. the CLIs on PNG files ----------------------------------------------
     print(f"[phase 14 at {time.perf_counter() - t_start:.1f} s]")
     _cli_phase(dev, launches)
+
+    # --- 15. the sharded runtime: mesh, spatial, and the entry points on them --
+    print(f"[phase 15 at {time.perf_counter() - t_start:.1f} s]")
+    _mesh_phase(dev, launches)
     print(f"[phases done at {time.perf_counter() - t_start:.1f} s]")
 
     torch.cuda.synchronize()

@@ -1416,3 +1416,92 @@ def test_require_device_on_card(cuda_device):
     from tpuimage_torch.runtime import health
     health.require_device(60, what="a test", device="cuda")
     assert health.device_available(60, device=cuda_device)
+
+
+def _card_meshes(cuda_device):
+    """4 shards on the one card, and the distinct cards where there are
+    several."""
+    from tpuimage_torch.runtime.mesh import make_mesh
+    meshes = [make_mesh(4, ("space",), devices=[cuda_device] * 4)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh(4 if torch.cuda.device_count() >= 4 else 2, ("space",)))
+    return meshes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gui_page", "gui_tilted", "default_close"])
+def test_post_warp_spatial_on_card(cuda_device, case):
+    """The H-sharded post-warp on the card: every stage equal to
+    docscan_post_warp on the card (an A4 page at the GUI config, a tilted
+    one so the rotation runs, the default config so the close runs)."""
+    from tpuimage_torch.pipelines import docscan
+    from tpuimage_torch.runtime.spatial import docscan_post_warp_spatial
+    page = synth.page(31, 1200, 849, tilt_deg=4.0 if case == "gui_tilted" else 0.0,
+                      rules=3 if case == "gui_tilted" else 0)
+    cfg = docscan.DocScanConfig() if case == "default_close" else docscan.GUI_DOCUMENT_CONFIG
+    x = torch.from_numpy(page).to(cuda_device)
+    ref = docscan.docscan_post_warp(x, cfg)
+    if case == "gui_tilted":
+        assert float(ref["deskew_angle"]) != 0.0
+    for mesh in _card_meshes(cuda_device):
+        before = kernels.launch_counts()
+        out = docscan_post_warp_spatial(x, cfg, mesh)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        for k in ("gauss_chain", "blackhat_rect", "hist256", "inkmask_weighted",
+                  "rank_extract", "hough_votes"):
+            assert after[k] > before[k], k
+        for k in ref:
+            assert torch.equal(out[k].cpu(), ref[k].cpu()), (case, k)
+
+
+@pytest.mark.cuda
+def test_night_spatial_on_card(cuda_device):
+    """night_gray_spatial / night_rgb_spatial on 4 shards of the card,
+    equal to the unsharded composition on the card."""
+    from tpuimage_torch.ops.median import median_blur
+    from tpuimage_torch.pipelines import night
+    from tpuimage_torch.runtime.spatial import night_gray_spatial, night_rgb_spatial
+    rgb = torch.from_numpy(np.stack([synth.night_scene(s, 856, 1280) for s in (1, 2)]))
+    rgb = rgb.to(cuda_device)
+    for mesh in _card_meshes(cuda_device):
+        g = night_gray_spatial(rgb[..., 1], mesh)
+        ref = night.night_gray(rgb[..., 1].contiguous())
+        for k in ref:
+            assert torch.equal(g[k].cpu(), ref[k].cpu()), k
+        out = night_rgb_spatial(rgb, mesh)
+        filt = median_blur(rgb, 3, channels_last=True).contiguous()
+        lab = color.rgb_to_lab(filt)
+        l_enh = histogram.clahe(lab[..., 0], clip_limit=2.0, tiles_x=8, tiles_y=8)
+        enh = color.lab_to_rgb(torch.cat([l_enh[..., None], lab[..., 1:]], dim=-1), impl="lut")
+        assert torch.equal(out["filtered"].cpu(), filt.cpu())
+        assert torch.equal(out["enhanced"].cpu(), enh.cpu())
+
+
+@pytest.mark.cuda
+def test_lab_to_rgb_lut_card_equals_host(cuda_device):
+    """The integer Lab -> RGB on the whole 256^3 Lab grid, card = host."""
+    grid = torch.stack(torch.meshgrid(*[torch.arange(256, dtype=torch.uint8)] * 3,
+                                      indexing="ij"), dim=-1).reshape(-1, 3)
+    card = color.lab_to_rgb(grid.to(cuda_device), impl="lut").cpu()
+    for part in range(4):
+        rows = slice(part * (1 << 22), (part + 1) * (1 << 22))
+        assert torch.equal(card[rows], color.lab_to_rgb(grid[rows], impl="lut")), part
+
+
+@pytest.mark.cuda
+def test_scan_batch_on_a_card_mesh(cuda_device):
+    """scan_batch(mesh=) and scan_stream(mesh=) over 4 shards of the card
+    (5 photos: the pad runs) equal the unsharded calls."""
+    from tpuimage_torch.pipelines import docscan
+    from tpuimage_torch.runtime.mesh import make_mesh
+    photos = [synth.document_photo(s, 1600, 1200, tilt_deg=3.0 * (s % 2)) for s in range(5)]
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    ref = docscan.scan_batch(photos, device=cuda_device)
+    for got in (docscan.scan_batch(photos, mesh=mesh),
+                [r for b in docscan.scan_stream([photos[:3], photos[3:]], mesh=mesh) for r in b]):
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert set(a) == set(b)
+            np.testing.assert_array_equal(a["binary"], b["binary"])
+            assert a["deskew_angle"] == b["deskew_angle"] and a["use_whole"] == b["use_whole"]

@@ -27,6 +27,7 @@ from tpuimage.pipelines import docscan as jdoc
 from tpuimage_torch import convert, synth
 from tpuimage_torch.ops import histogram
 from tpuimage_torch.pipelines import docscan as tdoc
+from tpuimage_torch.runtime.mesh import make_mesh
 
 # one intra-op thread: pytest-xdist runs several workers side by side, and
 # PyTorch's default of one spinning thread per core each slows every
@@ -240,8 +241,8 @@ def test_scan_batch_isolates_bad_requests(photos):
     assert "error" in out[1] and set(out[1]) == {"error"}
     assert out[0]["binary"].shape == (256, 181)
     assert out[2]["use_whole"] and out[2]["binary"].shape == (256, 192)
-    with pytest.raises(NotImplementedError):
-        tdoc.scan_batch(photos, CFG, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="not a device of the mesh"):
+        tdoc.scan_batch(photos, CFG, device="cpu", mesh=make_mesh(2, devices=["meta"] * 2))
     # the same isolation when the call runs in sub-batches of one
     chunked = tdoc.scan_batch([photos[0], bad, _t(photos[2])], CFG, device="cpu",
                               pipeline_chunk=1)

@@ -26,6 +26,7 @@ from tpuimage_torch import synth
 from tpuimage_torch.io import imageio as tio
 from tpuimage_torch.ops import draw as tdraw
 from tpuimage_torch.pipelines import docscan as tdoc
+from tpuimage_torch.runtime.mesh import make_mesh
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -121,7 +122,7 @@ def test_process_document_writes_the_same_stage_files(documents):
 def test_process_document_options(photos, tmp_path):
     """A path as input, no stage files without save_stages, OCR recorded
     as an error where pytesseract is missing, the disabled fallback and
-    the unported space_mesh."""
+    a space_mesh that does not hold the device asked for."""
     path = str(tmp_path / "in.png")
     tio.save_image(path, photos[2])
     out = tdoc.process_document(path, out_dir=str(tmp_path / "o"), config=CFG,
@@ -131,8 +132,9 @@ def test_process_document_options(photos, tmp_path):
     with pytest.raises(RuntimeError, match="fallback disabled"):
         tdoc.process_document(photos[2], out_dir=None, device="cpu",
                               config=dataclasses.replace(CFG, fallback_use_whole=False))
-    with pytest.raises(NotImplementedError):
-        tdoc.process_document(photos[0], out_dir=None, device="cpu", space_mesh=object())
+    with pytest.raises(ValueError, match="not a device of the mesh"):
+        tdoc.process_document(photos[0], out_dir=None, device="cpu",
+                              space_mesh=make_mesh(2, ("space",), devices=["meta"] * 2))
 
 
 def test_localize_and_perspective_warp(photos):
@@ -219,8 +221,9 @@ def test_scan_stream_closed_early_and_checks_eagerly(photos):
     first = next(stream)
     assert first[0]["binary"].shape == (400, 283)
     stream.close()
-    with pytest.raises(NotImplementedError):
-        tdoc.scan_stream([photos], GUI, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="not a device of the mesh"):
+        tdoc.scan_stream([photos], GUI, device="cpu",
+                         mesh=make_mesh(2, devices=["meta"] * 2))
     assert list(tdoc.scan_stream([], GUI, device="cpu")) == []
 
 

@@ -1,7 +1,7 @@
 """Colour conversions bit-matching OpenCV's 8-bit paths (counterpart of
 ``tpuimage.ops.color``): RGB <-> gray, RGB <-> YCrCb (Q14 fixed point),
 RGB -> Lab (fixed point, the ``rgb_to_lab`` kernel on the card), Lab ->
-RGB (float) and RGB <-> HSV (8-bit, H in [0, 180)); the BGR forms flip
+RGB (float, or integer tables with ``impl="lut"``) and RGB <-> HSV (8-bit, H in [0, 180)); the BGR forms flip
 the channels around them."""
 from __future__ import annotations
 
@@ -84,7 +84,8 @@ _SRGB2XYZ_D65 = np.array([
     [0.212671, 0.715160, 0.072169],
     [0.019334, 0.119193, 0.950227],
 ])
-_XYZ2SRGB_F32 = np.linalg.inv(_SRGB2XYZ_D65).astype(np.float32)
+_XYZ2SRGB_D65 = np.linalg.inv(_SRGB2XYZ_D65)
+_XYZ2SRGB_F32 = _XYZ2SRGB_D65.astype(np.float32)
 
 
 def lab_tables():
@@ -135,9 +136,15 @@ def _cube(t: torch.Tensor) -> torch.Tensor:
     return t * (t * t)
 
 
-def lab_to_rgb(img: torch.Tensor) -> torch.Tensor:
+def lab_to_rgb(img: torch.Tensor, impl: str = "float") -> torch.Tensor:
     """(..., 3) uint8 Lab -> (..., 3) uint8 RGB: tpuimage's float path
-    (Lab2RGBfloat with 8-bit rescale and the sRGB gamma), op for op."""
+    (Lab2RGBfloat with 8-bit rescale and the sRGB gamma), op for op; or,
+    with ``impl="lut"``, its integer fixed-point path (:func:`_lab_to_rgb_lut`),
+    which the sharded night pipeline uses."""
+    if impl == "lut":
+        return _lab_to_rgb_lut(img)
+    if impl != "float":
+        raise ValueError(f"lab_to_rgb: impl must be 'float' or 'lut', got {impl!r}")
     lum = f32(img[..., 0]) * (100.0 / 255.0)
     a = f32(img[..., 1]) - 128.0
     b = f32(img[..., 2]) - 128.0
@@ -160,6 +167,76 @@ def lab_to_rgb(img: torch.Tensor) -> torch.Tensor:
     srgb = torch.where(rgb_lin <= 0.0031308, rgb_lin * 12.92,
                        1.055 * rgb_lin ** (1.0 / 2.4) - 0.055)
     return saturate_u8(srgb * 255.0)
+
+
+# --- the integer fixed-point Lab -> RGB (tpuimage's impl="lut") -----------
+_LAB_INV_SHIFT = 26
+
+
+@functools.lru_cache(maxsize=None)
+def lab_inv_tables():
+    """tpuimage's ``_lab_inv_tables``, built the same way in float64 on the
+    host: (XT (3, 256, 256) indexed (L, a), YT (3, 256) indexed L, ZT (3,
+    256, 256) indexed (L, b), each channel's contribution at 2^26 fixed
+    point as int32, and thr (255,) int32, the smallest fixed-point value
+    whose gamma-encoded, cvRound-ed byte reaches 1 .. 255)."""
+    S = float(1 << _LAB_INV_SHIFT)
+    M = _XYZ2SRGB_D65
+    L = np.arange(256, dtype=np.float64) * (100.0 / 255.0)
+    fy = (L + 16.0) / 116.0
+    y = np.where(L > 8.0, fy ** 3, L / 903.3)
+    ab = np.arange(256, dtype=np.float64) - 128.0
+    fx = fy[:, None] + ab[None, :] / 500.0
+    fz = fy[:, None] - ab[None, :] / 200.0
+
+    def finv(t):
+        return np.where(t ** 3 > 0.008856, t ** 3, (t - 16.0 / 116.0) / 7.787)
+
+    x = finv(fx) * _D65[0]
+    z = finv(fz) * _D65[2]
+    XT = np.rint(M[:, 0][:, None, None] * x[None] * S).astype(np.int32)
+    YT = np.rint(M[:, 1][:, None] * y[None] * S).astype(np.int32)
+    ZT = np.rint(M[:, 2][:, None, None] * z[None] * S).astype(np.int32)
+
+    def gamma255(m):
+        t = m / S
+        s = np.where(t <= 0.0031308, t * 12.92, 1.055 * t ** (1.0 / 2.4) - 0.055)
+        return np.rint(s * 255.0)
+
+    thr = np.empty(255, dtype=np.int32)
+    for k in range(1, 256):
+        s = (k - 0.5) / 255.0
+        t = s / 12.92 if s <= 0.0031308 * 12.92 else ((s + 0.055) / 1.055) ** 2.4
+        m = int(np.ceil(t * S))
+        while m > 0 and gamma255(m - 1) >= k:
+            m -= 1
+        while gamma255(m) < k:
+            m += 1
+        thr[k - 1] = m
+    return XT, YT, ZT, thr
+
+
+@functools.lru_cache(maxsize=None)
+def _lab_inv_tables_on(device: torch.device):
+    XT, YT, ZT, thr = lab_inv_tables()
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                 for t in (XT.reshape(3, -1), YT, ZT.reshape(3, -1), thr))
+
+
+def _lab_to_rgb_lut(img: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 Lab -> RGB through the integer tables: per channel
+    the three contributions looked up and summed in int32, clamped to
+    [0, 2^26], then the byte is the count of thresholds at or below it.
+    Integer throughout, so every device gives the same bytes."""
+    XT, YT, ZT, thr = _lab_inv_tables_on(img.device)
+    li = img[..., 0].to(torch.int64)
+    la = li * 256 + img[..., 1].to(torch.int64)
+    lb = li * 256 + img[..., 2].to(torch.int64)
+    outs = []
+    for c in range(3):
+        acc = torch.clamp(XT[c][la] + YT[c][li] + ZT[c][lb], 0, 1 << _LAB_INV_SHIFT)
+        outs.append(torch.searchsorted(thr, acc.contiguous(), right=True).to(torch.uint8))
+    return torch.stack(outs, dim=-1)
 
 
 def lab_to_bgr(img: torch.Tensor) -> torch.Tensor:

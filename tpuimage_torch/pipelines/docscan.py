@@ -34,6 +34,11 @@ thread while the caller's thread fits quads, so host and card overlap;
 sub-batches. Both localize and deskew compact their edge maps with the
 ``rank_extract`` kernel before the ``hough_votes`` kernel.
 
+With ``mesh=`` the serving paths run phase 3 data-parallel over the
+mesh's shards, and with ``space_mesh=`` process_document runs the
+post-warp stages H-sharded (``runtime.mesh``, ``runtime.spatial``); the
+results equal the unsharded calls'.
+
 Per-request failures are isolated as in tpuimage: a host-side failure
 marks its own request, a failed batched device call marks its group.
 Nothing here imports the JAX package: the host-only helpers are the
@@ -68,6 +73,8 @@ from tpuimage_torch.ops.histogram import hist256_batch, otsu_from_hist
 from tpuimage_torch.ops.hough import hough_fold_median_angle, hough_lines_p_det
 from tpuimage_torch.ops.morphology import morph_blackhat, morph_close, structuring_element
 from tpuimage_torch.ops.threshold import adaptive_threshold
+from tpuimage_torch.runtime import spatial
+from tpuimage_torch.runtime.mesh import canonical_device, run_data_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -452,11 +459,15 @@ def process_document(input_path, out_dir: Optional[str] = "outputs",
     PNG, or any format PIL reads), or an RGB uint8 (H, W, 3) array or
     tensor.
 
-    device: as ``scan_batch``'s (default the card). ``space_mesh`` (the
-    H-sharded post-warp) is not ported yet and raises
-    NotImplementedError."""
+    device: as ``scan_batch``'s (default the card). ``space_mesh``: a
+    ``runtime.mesh.Mesh`` with a "space" axis; the post-warp stages then
+    run H-sharded over it (``runtime.spatial.docscan_post_warp_spatial``,
+    every stage equal to the unsharded program's) where the warped height
+    divides the axis, and unsharded with a warning where it does not. The
+    front end then runs on ``device``, by default the mesh's first
+    device; ValueError where ``device`` is not one of the mesh's."""
     if space_mesh is not None:
-        raise NotImplementedError("process_document(space_mesh=...) is not ported yet")
+        device = _front_device(device, space_mesh)
     if isinstance(input_path, (str, os.PathLike)):
         input_path = imageio.load_image_rgb(input_path)
     rgb = as_input(input_path, device)
@@ -489,7 +500,17 @@ def process_document(input_path, out_dir: Optional[str] = "outputs",
         warped = perspective_warp(rgb, quad, page=c.page, scale_long=c.scale_long)
     dump("scan_03_warped.png", warped)
 
-    stages = docscan_post_warp(warped.contiguous(), c)
+    stages = None
+    if space_mesh is not None:
+        n = space_mesh.shape["space"]
+        if int(warped.shape[0]) % n == 0:
+            stages = spatial.docscan_post_warp_spatial(warped, c, space_mesh)
+        else:
+            warnings.warn(f"warped height {int(warped.shape[0])} does not "
+                          f"divide the space axis ({n}); running the "
+                          "post-warp stages unsharded")
+    if stages is None:
+        stages = docscan_post_warp(warped.contiguous(), c)
     for name, key in _STAGE_FILES:
         dump(name, stages[key])
 
@@ -635,17 +656,32 @@ def _scan_quad_fit(state: dict, config: DocScanConfig, fallback_common_shape: bo
     del state["stacks"]
 
 
-def _scan_postwarp_dispatch(state: dict, config: DocScanConfig) -> None:
-    """Phase 3: the post-warp program per page shape. Each group's clean
-    pages, angles and overflow flags stay on the device in
-    ``state['groups']``."""
+_SERVED = ("clean", "deskew_angle", "deskew_overflow")
+
+
+def _post_warp_served(batch: torch.Tensor, config: DocScanConfig, mesh) -> dict:
+    """The post-warp outputs a request gets, of one page-shape group: on
+    the group's device, or data-parallel over a mesh (the group padded to
+    a multiple of the mesh's size by repeating its last page, each shard
+    on its device; gathered on the mesh's first device, the pad
+    dropped)."""
+    def run(b):
+        out = docscan_post_warp_batch(b, config)
+        return {k: out[k] for k in _SERVED}
+    return run(batch) if mesh is None else run_data_parallel(run, batch, mesh)
+
+
+def _scan_postwarp_dispatch(state: dict, config: DocScanConfig, mesh=None) -> None:
+    """Phase 3: the post-warp program per page shape (data-parallel over
+    ``mesh`` when one is given). Each group's clean pages, angles and
+    overflow flags stay on the device in ``state['groups']``."""
     pages, metas = state["pages"], state["metas"]
     groups = []
     for shape in {tuple(p.shape) for p in pages if p is not None}:
         idxs = [i for i, p in enumerate(pages)
                 if p is not None and tuple(p.shape) == shape]
         try:
-            out = docscan_post_warp_batch(torch.stack([pages[i] for i in idxs]), config)
+            out = _post_warp_served(torch.stack([pages[i] for i in idxs]), config, mesh)
         except Exception as e:  # noqa: BLE001 — batched device call: whole group
             for i in idxs:
                 metas[i] = {"error": str(e)}
@@ -680,6 +716,20 @@ def _scan_fetch(state: dict) -> list:
     return results
 
 
+def _front_device(device, mesh) -> torch.device:
+    """Where the unsharded phases run: ``resolve_device(device)``, or with
+    a mesh its first device by default; ValueError where both are given
+    and ``device`` is not one of the mesh's devices."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is None:
+        return mesh.devices.flat[0]
+    dev = canonical_device(resolve_device(device))
+    if dev not in set(mesh.devices.flat):
+        raise ValueError(f"device {dev} is not a device of the mesh {mesh}")
+    return dev
+
+
 def _auto_pipeline_chunk(n: int) -> int:
     """Sub-batch size for scan_batch's pipelining when the caller gives
     none: 0 (off). On an H100 the stream measured no faster than a loop of
@@ -701,6 +751,13 @@ def scan_batch(inputs, config: DocScanConfig = GUI_DOCUMENT_CONFIG,
     RuntimeError when there is no CUDA device, so a caller who wants the
     host passes ``device="cpu"``).
 
+    mesh: a ``runtime.mesh.Mesh``; the post-warp program then runs
+    data-parallel over all its shards, each page-shape group padded to a
+    multiple of the mesh's size by repeating its last page, and the
+    results are the unsharded call's. The other phases run on ``device``,
+    by default the mesh's first device; ValueError where ``device`` is not
+    one of the mesh's.
+
     fallback_common_shape=True resizes use-whole pages (INTER_AREA, no
     padding) to the page geometry (``_fallback_common_size``) instead of
     keeping their aspect, so they share the quad pages' shape groups; such
@@ -710,22 +767,20 @@ def scan_batch(inputs, config: DocScanConfig = GUI_DOCUMENT_CONFIG,
     call into sub-batches of that many images, driven through
     scan_stream so that one sub-batch's host work overlaps the device
     work of the one before; None takes ``_auto_pipeline_chunk`` (off).
-    Per-request results are the same either way. ``mesh`` is not ported
-    yet and raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError("scan_batch(mesh=...) is not ported yet")
-    dev = resolve_device(device)
+    Per-request results are the same either way."""
+    dev = _front_device(device, mesh)
     n = len(inputs)
     k = _auto_pipeline_chunk(n) if pipeline_chunk is None else int(pipeline_chunk)
     if 0 < k < n:
         out: list = []
         for res in scan_stream([inputs[i:i + k] for i in range(0, n, k)], config,
-                               device=dev, fallback_common_shape=fallback_common_shape):
+                               device=dev, mesh=mesh,
+                               fallback_common_shape=fallback_common_shape):
             out.extend(res)
         return out
     state = _scan_load_localize(inputs, config, dev)
     _scan_quad_fit(state, config, fallback_common_shape)
-    _scan_postwarp_dispatch(state, config)
+    _scan_postwarp_dispatch(state, config, mesh)
     return _scan_fetch(state)
 
 
@@ -748,13 +803,11 @@ def scan_stream(batches, config: DocScanConfig = GUI_DOCUMENT_CONFIG, device=Non
     cancels the queued work; a phase already running on a worker thread
     finishes in the background. ``device`` and ``mesh`` as in
     scan_batch (checked when this is called, not at the first batch)."""
-    if mesh is not None:
-        raise NotImplementedError("scan_stream(mesh=...) is not ported yet")
-    return _scan_stream(iter(batches), config, resolve_device(device),
+    return _scan_stream(iter(batches), config, _front_device(device, mesh), mesh,
                         fallback_common_shape, prefetch)
 
 
-def _scan_stream(it, config: DocScanConfig, dev: torch.device,
+def _scan_stream(it, config: DocScanConfig, dev: torch.device, mesh,
                  fallback_common_shape: bool, prefetch: bool):
     ready = None          # quad fit done, post-warp not yet dispatched
     inflight = deque()    # post-warp dispatched, results not fetched
@@ -786,7 +839,7 @@ def _scan_stream(it, config: DocScanConfig, dev: torch.device,
             state = pending.result() if ex is not None else pending
             pending = next_state()   # overlaps everything below
             if ready is not None:
-                _scan_postwarp_dispatch(ready, config)
+                _scan_postwarp_dispatch(ready, config, mesh)
                 inflight.append(ready)
             while len(inflight) > 1:
                 # hand (i-2)'s fetch over before the quad fit, so that the
@@ -798,7 +851,7 @@ def _scan_stream(it, config: DocScanConfig, dev: torch.device,
                 yield emit(fetches.popleft())
             ready = state
         if ready is not None:
-            _scan_postwarp_dispatch(ready, config)
+            _scan_postwarp_dispatch(ready, config, mesh)
             inflight.append(ready)
         while inflight:
             fetches.append(start_fetch(inflight.popleft()))
