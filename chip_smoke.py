@@ -194,7 +194,19 @@ Phases (any failure raises and the exit code is non-zero):
    call and read just after) and printed beside its unsharded run: ms a
    page (CUDA events, median of 3), launches, host reads (torch's sync
    debug warnings), the bytes of the halo exchanges, gathers and
-   reductions, and the peak device memory.
+   reductions, and the peak device memory;
+16. the forms repaired when the port was closed, and its last public
+   names, each card = host, each timed beside the card's name and power
+   limit: the f64 cos / sin rounded to f32 at the 81 quarter degrees in
+   +-10, ``rotate_pages`` at all 81 on a 300x212 crop and on 8 A4 pages,
+   ``docscan_post_warp_batch`` under ``DocScanConfig()`` on them (every
+   page rotated); PORTRAIT and the every-stage categorisation preset on 8
+   scenes of 1280x853 (counted); the Retinex's log on every 16th f32 of
+   [1, 257] and the Retinex on a crop; ``canny(l2_gradient=True)`` on the
+   8 deskew maps and ``hough_lines(return_overflow=True)`` at a budget
+   that overflows and one that does not (rank_extract and hough_votes
+   counted, the flags equal the host's); ``warp_perspective_batch`` with
+   a 127.5 border and a replicate one; ``otsu_threshold`` (counted).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record (all twelve kernels, each launched on
@@ -1587,6 +1599,162 @@ def _mesh_phase(dev, launches: dict) -> None:
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
 
 
+# phase 16: every quarter degree in +-10, the deskew's range; a budget the
+# A4 deskew maps overflow; the every-stage categorisation preset
+CLOSURE_ANGLES = tuple(q / 4 for q in range(-40, 41))
+OVERFLOW_BUDGET = 1000
+EVERY_STAGE = dict(brightness_mode="gamma", brightness_gamma=0.9, linear_boost_beta=4.0,
+                   contrast_mode="clahe", clahe_clip=2.0, saturation_mult=1.2,
+                   saturation_cap=0.5, gray_world=True, chroma_boost_cb=1.1,
+                   chroma_boost_cr=1.05, highlight_compression="sqrt", local_contrast=True,
+                   lc_radius=2.0, lc_amount=0.6, lc_threshold=1.0, invert=True)
+
+
+def _closure_phase(dev, launches: dict) -> None:
+    """Phase 16: the forms repaired when the port was closed and its last
+    public names, card against host (the module docstring, item 16)."""
+    from tpuimage_torch import synth
+    from tpuimage_torch.core.dtypes import xla_sum_f32
+    from tpuimage_torch.ops import color, edges, geometry, histogram, hough, kernels
+    from tpuimage_torch.ops.restore import _log_f32, single_scale_retinex
+    from tpuimage_torch.pipelines import docscan, shadow
+    from tpuimage_torch.presets import apply
+    from tpuimage_torch.presets.loader import CategorizationPreset
+    t0 = time.perf_counter()
+    smi = _nvidia_smi()
+
+    def timed(what: str, fn, n_px: int) -> None:
+        ms = _cuda_ms(fn, reps=3, calls=1)
+        print(f"{what}: {ms:.3f} ms a call = {n_px / 1e3 / ms:.1f} MP/s (CUDA events, warm, "
+              f"median of 3, input on the card) [{smi}]")
+
+    # 16.1 the deskew rotation: cos / sin in f64 rounded to f32 at every
+    # quarter degree, the rotation at all 81 on a crop and at 8 angles on 8
+    # A4 pages, then the post-warp (DocScanConfig(), the rotation runs)
+    angles = torch.tensor(CLOSURE_ANGLES, dtype=torch.float32)
+    rad = torch.deg2rad(torch.clamp(angles, -10.0, 10.0)).double()
+    card_cs = torch.stack([torch.cos(rad.to(dev)), torch.sin(rad.to(dev))]).float().cpu()
+    if not torch.equal(card_cs, torch.stack([torch.cos(rad), torch.sin(rad)]).float()):
+        raise AssertionError("rotation: the card's f64 cos / sin rounded to f32 differ")
+    print(f"card vs host, cos / sin in f64 rounded to f32 at the {len(angles)} quarter degrees "
+          f"in +-10: equal")
+    pages = np.stack([synth.page(1600 + i, *PAGE, tilt_deg=(-1) ** i * (1.5 + i), rules=4)
+                      for i in range(N_REQUESTS)])
+    crop = torch.from_numpy(np.repeat(pages[:1, 400:700, 300:512, 1], len(angles), 0))
+    _card_equals_host(f"rotate_pages at the {len(angles)} quarter degrees in +-10 (300x212)",
+                      geometry.rotate_pages(crop.to(dev), angles.to(dev), 10.0),
+                      geometry.rotate_pages(crop, angles, 10.0))
+    gray = torch.from_numpy(pages[..., 1].copy())
+    eight = torch.tensor(CLOSURE_ANGLES[1::10][:N_REQUESTS])
+    gray_d = gray.to(dev)
+    _card_equals_host(f"rotate_pages on {N_REQUESTS} A4 pages at {eight.tolist()} degrees",
+                      geometry.rotate_pages(gray_d, eight.to(dev), 10.0),
+                      geometry.rotate_pages(gray, eight, 10.0))
+    timed(f"rotate_pages, {N_REQUESTS} A4 pages", lambda: geometry.rotate_pages(
+        gray_d, eight.to(dev), 10.0), gray.numel())
+    cfg = docscan.DocScanConfig()
+    pages_d = torch.from_numpy(pages).to(dev)
+    post = docscan.docscan_post_warp_batch(pages_d, cfg)
+    post_h = docscan.docscan_post_warp_batch(torch.from_numpy(pages), cfg)
+    if not bool((post_h["deskew_angle"] != 0).all()):
+        raise AssertionError(f"post-warp: a page was not rotated: {post_h['deskew_angle']}")
+    for k in ("weighted", "deskew", "clean", "deskew_angle", "deskew_overflow"):
+        _card_equals_host(f"docscan_post_warp_batch(DocScanConfig()) {k}, {N_REQUESTS} A4 "
+                          f"pages", post[k], post_h[k])
+    timed(f"docscan_post_warp_batch(DocScanConfig()), {N_REQUESTS} A4 pages",
+          lambda: docscan.docscan_post_warp_batch(pages_d, cfg), gray.numel())
+
+    # 16.2 PORTRAIT and the every-stage preset on 8 scenes of 1280x853
+    scenes = np.stack([synth.shadowed_scene(1700 + i, *NIGHT) for i in range(N_REQUESTS)])
+    scenes_d = torch.from_numpy(scenes).to(dev)
+    every = CategorizationPreset(name="every", group="g", **EVERY_STAGE)
+    for what, fn in (("enhance_shadow_batch(PORTRAIT)",
+                      lambda x: shadow.enhance_shadow_batch(x, shadow.PRESETS["PORTRAIT"])[0]),
+                     ("apply_categorization_preset(every stage)",
+                      lambda x: apply.apply_categorization_preset(x, every))):
+        kernels.reset_launch_counts()
+        card = fn(scenes_d)
+        torch.cuda.synchronize()
+        for k_, v in _launched(f"{what}, {N_REQUESTS} scenes", kernels.launch_counts(),
+                               ("rgb_to_lab", "hist256", "clahe_apply")).items():
+            launches[k_] += v
+        _card_equals_host(f"{what}, {N_REQUESTS} scenes of {NIGHT[1]}x{NIGHT[0]}", card,
+                          fn(torch.from_numpy(scenes)))
+        timed(f"{what}, {N_REQUESTS} scenes", lambda: fn(scenes_d), scenes_d[..., 0].numel())
+
+    # 16.3 the Retinex's log (XLA's CPU form) on every 16th f32 of its
+    # domain [1, 257], then the Retinex on a 377x251 crop
+    lo, hi = np.float32(1.0).view(np.uint32), np.float32(257.0).view(np.uint32)
+    vals = torch.from_numpy(np.arange(lo, hi + 1, 16, dtype=np.uint32).view(np.float32))
+    _card_equals_host(f"_log_f32 on {vals.numel()} f32 values in [1, 257]",
+                      _log_f32(vals.to(dev)), _log_f32(vals))
+    patch = torch.from_numpy(scenes[0, 100:351, 200:577].copy())
+    _card_equals_host("single_scale_retinex (sigma 80), 251x377",
+                      single_scale_retinex(patch.to(dev)), single_scale_retinex(patch))
+    timed(f"single_scale_retinex (sigma 80), {N_REQUESTS} scenes",
+          lambda: single_scale_retinex(scenes_d), scenes_d[..., 0].numel())
+
+    # 16.4 canny(l2_gradient=True) and hough_lines(return_overflow=True) on
+    # the pages' deskew maps, at a budget that overflows and one that does not
+    maps = post["weighted"]
+    l2 = edges.canny(maps, cfg.canny_low, cfg.canny_high, l2_gradient=True)
+    l2_h = edges.canny(maps.cpu(), cfg.canny_low, cfg.canny_high, l2_gradient=True)
+    _card_equals_host(f"canny(l2_gradient=True), {N_REQUESTS} A4 deskew maps", l2, l2_h)
+    h, w = PAGE
+    for budget in (OVERFLOW_BUDGET, h * w):
+        kernels.reset_launch_counts()
+        card = hough.hough_lines(l2, 150, max_edges=budget, return_overflow=True)
+        torch.cuda.synchronize()
+        for k_, v in _launched(f"hough_lines(return_overflow=True, max_edges={budget})",
+                               kernels.launch_counts(), ("rank_extract", "hough_votes")).items():
+            launches[k_] += v
+        host = hough.hough_lines(l2_h, 150, max_edges=budget, return_overflow=True)
+        for name, c, hh in zip(("lines", "valid", "overflow"), card, host):
+            _card_equals_host(f"hough_lines max_edges={budget} {name}", c, hh)
+        if bool(host[2].all()) != (budget == OVERFLOW_BUDGET) or \
+                bool(host[2].any()) != (budget == OVERFLOW_BUDGET):
+            raise AssertionError(f"hough_lines max_edges={budget}: overflow {host[2].tolist()}")
+        timed(f"hough_lines(return_overflow=True, max_edges={budget}), {N_REQUESTS} A4 maps",
+              lambda: hough.hough_lines(l2, 150, max_edges=budget, return_overflow=True),
+              l2.numel())
+
+    # 16.5 warp_perspective_batch with both borders, and otsu_threshold
+    minv = torch.tensor([[[0.9, 0.12, -20.0], [-0.08, 1.1, 15.0], [1e-4, 2e-4, 1.0]],
+                         [[1.2, -0.1, 10.0], [0.05, 0.8, -30.0], [-2e-4, 1e-4, 1.0]]])
+    minv = minv.repeat(N_REQUESTS // 2, 1, 1)
+    for border, value in (("constant", 127.5), ("replicate", 0.0)):
+        warp = lambda x, m: geometry.warp_perspective_batch(  # noqa: E731
+            x, m, h, w, border=border, border_value=value)
+        _card_equals_host(f"warp_perspective_batch(border={border!r}, border_value={value}), "
+                          f"{N_REQUESTS} A4 pages", warp(pages_d, minv.to(dev)),
+                          warp(torch.from_numpy(pages), minv))
+        timed(f"warp_perspective_batch(border={border!r}), {N_REQUESTS} A4 pages",
+              lambda: warp(pages_d, minv.to(dev)), gray.numel())
+    kernels.reset_launch_counts()
+    otsu = torch.stack([histogram.otsu_threshold(g) for g in gray_d])
+    torch.cuda.synchronize()
+    for k_, v in _launched("otsu_threshold", kernels.launch_counts(), ("hist256",)).items():
+        launches[k_] += v
+    _card_equals_host(f"otsu_threshold, {N_REQUESTS} A4 pages' gray", otsu,
+                      torch.stack([histogram.otsu_threshold(g) for g in gray]))
+
+    # 16.6 XLA's f32 tree sum (the categorisation's and the gray world's
+    # means): its serial levels one cumsum launch each on the card
+    planes = torch.stack([scenes_d[..., 0], scenes_d[..., 2],
+                          (scenes_d[..., 1] > 230).to(torch.uint8)], dim=-3)
+    big = torch.from_numpy(np.random.default_rng(16).integers(
+        200, 256, (1, 3000, 4000), dtype=np.uint8))
+    for what, x in ((f"{N_REQUESTS}x3 planes of {NIGHT[1]}x{NIGHT[0]}", planes),
+                    ("one plane of 4000x3000", big)):
+        _card_equals_host(f"xla_sum_f32, {what}", xla_sum_f32(x.to(dev)), xla_sum_f32(x.cpu()))
+    _card_equals_host(f"categorize_cues, {N_REQUESTS} scenes",
+                      torch.stack(shadow.categorize_cues(scenes_d)),
+                      torch.stack(shadow.categorize_cues(torch.from_numpy(scenes), device="cpu")))
+    timed(f"categorize_cues, {N_REQUESTS} scenes", lambda: shadow.categorize_cues(scenes_d),
+          scenes_d[..., 0].numel())
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2787,6 +2955,10 @@ def main() -> int:
     # --- 15. the sharded runtime: mesh, spatial, and the entry points on them --
     print(f"[phase 15 at {time.perf_counter() - t_start:.1f} s]")
     _mesh_phase(dev, launches)
+
+    # --- 16. the repaired forms and the last public names, card = host -------
+    print(f"[phase 16 at {time.perf_counter() - t_start:.1f} s]")
+    _closure_phase(dev, launches)
     print(f"[phases done at {time.perf_counter() - t_start:.1f} s]")
 
     torch.cuda.synchronize()

@@ -128,7 +128,7 @@ def test_hough_line_count_matches(name, max_lines, max_edges):
                                        max_lines=max_lines, max_edges=max_edges,
                                        return_overflow=True)
     n, ovf = hough_line_count(canny(_t(gray)[None], 50, 150), threshold=150,
-                              max_lines=max_lines, max_edges=max_edges)
+                              max_lines=max_lines, max_edges=max_edges, return_overflow=True)
     assert n.dtype == torch.int32 and n.shape == (1,)
     assert int(n[0]) == int(ref_n) and bool(ovf[0]) == bool(ref_ovf)
     assert bool(ovf[0]) == (max_edges == 500)

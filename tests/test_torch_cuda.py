@@ -79,10 +79,10 @@ def test_hough_votes_kernel_on_card(cuda_device, shape, density):
     rng = np.random.default_rng(shape[0])
     edges = torch.from_numpy((rng.random((2,) + shape) < density).astype(np.uint8) * 255)
     before = kernels.launch_counts()["hough_votes"]
-    acc, _ = hough.hough_accumulator(edges.to(cuda_device))
+    acc = hough.hough_accumulator(edges.to(cuda_device))
     torch.cuda.synchronize()
     assert kernels.launch_counts()["hough_votes"] == before + 1
-    assert torch.equal(acc.cpu(), hough.hough_accumulator(edges)[0])
+    assert torch.equal(acc.cpu(), hough.hough_accumulator(edges))
 
 
 @pytest.mark.cuda
@@ -1505,3 +1505,105 @@ def test_scan_batch_on_a_card_mesh(cuda_device):
             assert set(a) == set(b)
             np.testing.assert_array_equal(a["binary"], b["binary"])
             assert a["deskew_angle"] == b["deskew_angle"] and a["use_whole"] == b["use_whole"]
+
+
+# --- the port closed: the repaired forms and the last public names -----------
+
+EVERY_STAGE = dict(brightness_mode="gamma", brightness_gamma=0.9, linear_boost_beta=4.0,
+                   contrast_mode="clahe", clahe_clip=2.0, saturation_mult=1.2,
+                   saturation_cap=0.5, gray_world=True, chroma_boost_cb=1.1,
+                   chroma_boost_cr=1.05, highlight_compression="sqrt", local_contrast=True,
+                   lc_radius=2.0, lc_amount=0.6, lc_threshold=1.0, invert=True)
+
+
+@pytest.mark.cuda
+def test_rotation_at_quarter_degrees_card_equals_host(cuda_device):
+    """rotate_pages at every quarter degree in +-10 (81 angles) on a
+    300x212 page: card = host (cos / sin in f64 rounded to f32, the fused
+    products in f64, the rows-first blend in f32 on both)."""
+    from tpuimage_torch.ops import geometry
+    page = synth.page(41, 300, 212, rules=3)[..., 1]
+    angles = torch.arange(-40, 41, dtype=torch.float32) / 4
+    stack = torch.from_numpy(np.repeat(page[None], len(angles), 0))
+    card = geometry.rotate_pages(stack.to(cuda_device), angles.to(cuda_device), 10.0)
+    assert torch.equal(card.cpu(), geometry.rotate_pages(stack, angles, 10.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["PORTRAIT", "EVERY_STAGE"])
+def test_portrait_and_every_stage_card_equals_host(cuda_device, which):
+    """PORTRAIT (its CLAHE blend fusing its first product) and the
+    categorisation applier with every stage on (the gray world's tree-reduce
+    means, lab_to_rgb's folded constants and sRGB thresholds) on two
+    scenes of 240x320: card = host, the CLAHE kernels launched."""
+    xs = np.stack([synth.shadowed_scene(1330 + i, 240, 320) for i in range(2)])
+    from tpuimage_torch.pipelines import shadow
+    from tpuimage_torch.presets import apply
+    from tpuimage_torch.presets.loader import CategorizationPreset
+    every = CategorizationPreset(name="every", group="g", **EVERY_STAGE)
+
+    def run(**kw):
+        if which == "PORTRAIT":
+            return shadow.enhance_shadow_batch(xs, shadow.PRESETS["PORTRAIT"], **kw)[0]
+        return apply.apply_categorization_preset(xs, every, **kw)
+    kernels.reset_launch_counts()
+    card = run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["clahe_apply"] > 0 and counts["rgb_to_lab"] > 0, counts
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), run(device="cpu"))
+
+
+@pytest.mark.cuda
+def test_canny_hough_otsu_warp_card_equals_host(cuda_device):
+    """canny(l2_gradient=True) on an A4 page's gray, hough_lines(
+    return_overflow=True) on its edges at the default budget and at one
+    that overflows (rank_extract and hough_votes launched), otsu_threshold
+    (hist256 launched), warp_perspective_batch with a replicate and a
+    127.5 border: card = host."""
+    from tpuimage_torch.ops import edges as edgeops
+    from tpuimage_torch.ops import geometry
+    gray = color.rgb_to_gray(torch.from_numpy(synth.page(43, 1200, 849, tilt_deg=3.0, rules=4)))
+    for l2 in (False, True):
+        card = edgeops.canny(gray.to(cuda_device), 50, 150, l2_gradient=l2)
+        assert torch.equal(card.cpu(), edgeops.canny(gray, 50, 150, l2_gradient=l2)), l2
+    edge = edgeops.canny(gray, 50, 150, l2_gradient=True)[None]
+    for budget in (0, 2000):
+        kernels.reset_launch_counts()
+        card = hough.hough_lines(edge.to(cuda_device), 150, max_edges=budget,
+                                 return_overflow=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["rank_extract"] > 0 and counts["hough_votes"] > 0, counts
+        host = hough.hough_lines(edge, 150, max_edges=budget, return_overflow=True)
+        for c, h in zip(card, host):
+            assert torch.equal(c.cpu(), h), budget
+        assert bool(host[2][0]) == (budget == 2000)
+    before = kernels.launch_counts()["hist256"]
+    assert float(histogram.otsu_threshold(gray.to(cuda_device))) == \
+        float(histogram.otsu_threshold(gray))
+    assert kernels.launch_counts()["hist256"] == before + 1
+    rgb = torch.from_numpy(np.stack([synth.shadowed_scene(1340 + i, 300, 400) for i in range(2)]))
+    minv = torch.tensor([[[0.9, 0.12, -20.0], [-0.08, 1.1, 15.0], [1e-4, 2e-4, 1.0]],
+                         [[1.2, -0.1, 10.0], [0.05, 0.8, -30.0], [-2e-4, 1e-4, 1.0]]])
+    for border, value in (("replicate", 0.0), ("constant", 127.5)):
+        card = geometry.warp_perspective_batch(rgb.to(cuda_device), minv.to(cuda_device), 320,
+                                               420, border=border, border_value=value)
+        assert torch.equal(card.cpu(), geometry.warp_perspective_batch(
+            rgb, minv, 320, 420, border=border, border_value=value)), border
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 853, 1280), (1, 3000, 4000), (37, 45)])
+def test_xla_sum_f32_card_equals_host(cuda_device, shape):
+    """XLA's f32 tree sum: its serial levels are one cumsum launch each on
+    the card (one thread a column adding in order in f32) and a loop of
+    f32 adds on the host. Bytes near 255 so the serial adds round; 2x3
+    planes of a scene, one plane of 4000x3000 (three levels; one column
+    but the zero one) and one of 45x37 (the last level four values):
+    card = host."""
+    from tpuimage_torch.core.dtypes import xla_sum_f32
+    x = torch.from_numpy(np.random.default_rng(shape[-1]).integers(200, 256, shape,
+                                                                  dtype=np.uint8))
+    assert torch.equal(xla_sum_f32(x.to(cuda_device)).cpu(), xla_sum_f32(x))

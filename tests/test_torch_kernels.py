@@ -55,7 +55,7 @@ def test_hist256_ref_matches_pallas_and_scatter(rng, n):
 def _accumulate(edges):
     """tpuimage_torch's vote path over a (B, H, W) stack (compaction +
     the hough_votes wrapper)."""
-    acc, _ = hough.hough_accumulator(torch.from_numpy(edges))
+    acc = hough.hough_accumulator(torch.from_numpy(edges))
     return acc.numpy()
 
 

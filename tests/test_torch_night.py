@@ -4,8 +4,8 @@ seeded inputs (``tpuimage_torch.synth.night_scene`` and random arrays).
 
 Tolerances, each stated where it is checked:
 - Lab forward, median blur and the CLAHE tile LUTs: exact (max |diff| 0);
-- Lab -> RGB: max |diff| <= 1 on < 0.01% of pixels (a ``pow`` in the sRGB
-  gamma, and XLA's fma contraction, against PyTorch's unfused ops);
+- Lab -> RGB: exact against tpuimage's jitted lab_to_rgb, on every
+  (L, a, b) byte triple;
 - CLAHE and the night paths: max |diff| <= 1 on < 0.1% of pixels (the
   blend's f32 rounding at cvRound .5 boundaries: tpuimage's own gather,
   matrix and Pallas forms differ from one another by as much); night_rgb
@@ -114,14 +114,51 @@ def test_rgb_to_lab_batch_and_strides():
 
 def test_lab_to_rgb_within_contract():
     """Random Lab bytes (65,536 pixels) and the Lab of a night scene:
-    max |diff| <= 1 on < 0.01% of pixels against tpuimage's f32 path."""
+    exact against tpuimage's jitted f32 path."""
     rnd = np.random.default_rng(3).integers(0, 256, (256, 256, 3), dtype=np.uint8)
     lab_scene = np.asarray(jcolor.rgb_to_lab(jnp.asarray(synth.night_scene(4, 128, 160)),
                                              impl="xla"))
     for lab in (rnd, lab_scene):
         ours = color.lab_to_rgb(_t(lab)).numpy()
         ref = np.asarray(jax.jit(jcolor.lab_to_rgb)(jnp.asarray(lab)))
-        _assert_within(ours, ref, 1, 1e-4)
+        np.testing.assert_array_equal(ours, ref)
+
+
+def test_lab_to_rgb_on_every_lab_triple():
+    """All 2**24 (L, a, b) bytes, 64 values of L at a time: exact against
+    tpuimage's jitted lab_to_rgb (XLA folds its constants, fuses a / 500
+    and b / 200 into fx and fz and one product of each matrix row; its f32
+    pow is libm's powf). The op-by-op form with PyTorch's f32 pow differed
+    on 90 of 5,636,096 triples, and by where an element fell in a vector."""
+    ab = np.stack(np.meshgrid(np.arange(256), np.arange(256), indexing="ij"), -1)
+    jit = jax.jit(jcolor.lab_to_rgb)
+    for l0 in range(0, 256, 64):
+        lab = np.concatenate([np.broadcast_to(np.arange(l0, l0 + 64)[:, None, None, None],
+                                              (64, 256, 256, 1)),
+                              np.broadcast_to(ab, (64, 256, 256, 2))], -1).astype(np.uint8)
+        np.testing.assert_array_equal(color.lab_to_rgb(_t(lab)).numpy(),
+                                      np.asarray(jit(jnp.asarray(lab))), err_msg=str(l0))
+
+
+def test_srgb_thresholds_match_xla():
+    """color._SRGB_THRESHOLD_BITS against tpuimage's jitted sRGB tail: its
+    byte is monotone over every f32 of the pow branch, (0.0031308, 1], and
+    each threshold is the first value of its byte (the linear branch is a
+    correctly rounded product, monotone by construction)."""
+    from tpuimage.core.dtypes import saturate_u8 as jsat
+
+    tail = jax.jit(lambda r: jsat(jnp.where(r <= 0.0031308, r * 12.92,
+                                            1.055 * r ** (1.0 / 2.4) - 0.055) * 255.0))
+    thr = np.array(color._SRGB_THRESHOLD_BITS, np.uint32).view(np.float32)
+    lo, hi = np.float32(0.0031308).view(np.uint32) + 1, np.float32(1.0).view(np.uint32)
+    pow_branch = np.arange(lo, hi + 1, dtype=np.uint32).view(np.float32)
+    byte = np.asarray(tail(jnp.asarray(pow_branch))).astype(np.int32)
+    assert (np.diff(byte) >= 0).all()
+    step = np.nonzero(np.diff(byte))[0] + 1
+    np.testing.assert_array_equal(thr[byte[step] - 1], pow_branch[step])
+    below = np.nextafter(thr, np.float32(0))
+    np.testing.assert_array_equal(np.asarray(tail(jnp.asarray(thr))), np.arange(1, 256))
+    np.testing.assert_array_equal(np.asarray(tail(jnp.asarray(below))), np.arange(0, 255))
 
 
 # ---------------------------------------------------------------------------

@@ -24,13 +24,17 @@ Tolerances, each stated where it is checked:
   CLAHE-tie contract, ROADMAP Queue 3).
 """
 import dataclasses
+import functools
 import json
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
+from tpuimage.core.dtypes import f32 as jf32
+from tpuimage.core.dtypes import saturate_u8 as jsat
 from tpuimage.ops import color as jcolor
 from tpuimage.ops import histogram as jhist
 from tpuimage.presets import apply as japply
@@ -143,6 +147,67 @@ def test_categorization_every_stage_and_batch():
     ours = apply.apply_categorization_preset(xs, _across(jg), device="cpu")
     for i in range(2):
         _exact(ours[i], japply.apply_categorization_preset(jnp.asarray(xs[i]), jg))
+
+
+def _photo():
+    return imageio.load_image_rgb("outputs/scan_02_quad.png")
+
+
+WHOLE_PHOTOS = {"photo": _photo, "dark": lambda: _photo() // 4}
+# EVERY_STAGE with its CLAHE on the whole photo: max |diff| 6 on the photo
+# and 9 on its darkened copy (measured), shares as PATH_TOL's (measured
+# 0.21% and 0.066% of values). Every stage after the CLAHE is exact on the
+# CLAHE stage inside tpuimage's program, and that stage differs by the
+# CLAHE's ties (max 3 and 1, ROADMAP's pinned CLAHE apply at cvRound .5
+# boundaries), which saturation, gray world, the highlight curve and the
+# local contrast carry up to 9.
+EVERY_STAGE_CLAHE_TOL = (9, 0.015, 0.005)
+
+
+@functools.partial(jax.jit, static_argnames=("p",))
+def _every_stage_program(rgb, p):
+    """tpuimage's apply_categorization_preset, also returning the value
+    after its contrast stage (its output is checked equal to tpuimage's)."""
+    x = jf32(rgb)
+    if p.brightness_mode == "linear":
+        x = x + p.brightness_beta
+    elif p.brightness_mode == "gamma":
+        x = jnp.power(jnp.clip(x / 255.0, 0.0, 1.0), p.brightness_gamma) * 255.0
+    if p.linear_boost_beta:
+        x = x + p.linear_boost_beta
+    x = jsat(x)
+    x = japply._apply_luminance(x, lambda l: jhist.clahe(l, clip_limit=p.clahe_clip,
+                                                          tiles_x=p.clahe_tiles[0],
+                                                          tiles_y=p.clahe_tiles[1]))
+    stage = x
+    rest = dataclasses.replace(p, brightness_mode="none", linear_boost_beta=0.0,
+                               contrast_mode="none")
+    return japply.apply_categorization_preset.__wrapped__(x, rest), stage
+
+
+@pytest.mark.parametrize("image", sorted(WHOLE_PHOTOS))
+def test_every_stage_on_the_whole_photo(image):
+    """EVERY_STAGE on the whole outputs/scan_02_quad.png and its copy
+    darkened to 1/4 against tpuimage's jitted applier: exact without the
+    CLAHE; with it, the stages after the CLAHE exact on the CLAHE stage
+    inside tpuimage's program, and the whole within EVERY_STAGE_CLAHE_TOL.
+    Before, without the CLAHE, the gray world took exact means where XLA's
+    tree reduce rounds its f32 sums, and lab_to_rgb's f32 pow was a last
+    place off XLA's on some elements."""
+    x = WHOLE_PHOTOS[image]()
+    jp = jloader.CategorizationPreset(name="all", group="g",
+                                      **dict(EVERY_STAGE, contrast_mode="none"))
+    _exact(apply.apply_categorization_preset(x, _across(jp), device="cpu"),
+           japply.apply_categorization_preset(jnp.asarray(x), jp))
+    jp = jloader.CategorizationPreset(name="all", group="g", **EVERY_STAGE)
+    ref = japply.apply_categorization_preset(jnp.asarray(x), jp)
+    final, stage = _every_stage_program(jnp.asarray(x), jp)
+    _exact(np.asarray(final), ref)
+    tail = _across(dataclasses.replace(jp, brightness_mode="none", linear_boost_beta=0.0,
+                                       contrast_mode="none"))
+    _exact(apply.apply_categorization_preset(np.asarray(stage), tail, device="cpu"), ref)
+    _assert_within(apply.apply_categorization_preset(x, _across(jp), device="cpu"), ref,
+                   *EVERY_STAGE_CLAHE_TOL)
 
 
 ENHANCEMENT_STAGES = {

@@ -15,16 +15,17 @@ Tolerances, each stated where it is checked:
   blend, the stretch and the unsharp blends, each on the values
   tpuimage's program (or its stage jitted alone) blends; the DOCUMENT and
   NIGHT programs whole, single and vmapped; the stages after the CLAHE on
-  tpuimage's own CLAHE output; the categories;
+  tpuimage's own CLAHE output; the categories; the Retinex (XLA's CPU
+  f32 log, tests/test_torch_retinex.py);
 - the float stages: magnitude within 1e-6 relative (XLA's sqrt of the
   exact sum of squares differs in the last place on a few values),
   phase within 1e-4 degrees, the Laplacian variance within 1e-5
-  relative; the Retinex (a correctly rounded log in place of XLA's) and
-  Richardson-Lucy (25 shifted multiply-adds in place of XLA's
-  convolution) within max |diff| 1 on < 0.1% of values (measured 0 and
-  at most 1 value);
+  relative; Richardson-Lucy (25 shifted multiply-adds in place of XLA's
+  convolution) within max |diff| 1 on < 0.1% of values (measured at
+  most 1 value);
 - the stages with a CLAHE (the CLAHE-tie contract of ROADMAP Queue 3):
-  the CLAHE stage within PATH_TOL; PORTRAIT whole within PATH_TOL;
+  the CLAHE stage within PATH_TOL; PORTRAIT whole within PATH_TOL, also
+  on the whole ``outputs/scan_02_quad.png``, single and in a batch;
   GENERAL whole within SHADOW_GENERAL_TOL, max 6 (measured 6): its
   stretch multiplies an L tie by 255 / (hi - lo) and its unsharp by up
   to 2, shares as PATH_TOL's (measured at most 0.23% and 0.08%).
@@ -240,8 +241,8 @@ def test_affine_and_perspective_warps():
 @pytest.mark.parametrize("name", ["scene72x96", "page96x72"])
 def test_retinex_and_richardson_lucy_within_bound(name):
     x = IMAGES[name]()
-    _assert_within(restore.single_scale_retinex(_t(x), 80.0),
-                   jax.jit(lambda a: jrestore.single_scale_retinex(a, 80.0))(x), 1, 0.001)
+    _exact(restore.single_scale_retinex(_t(x), 80.0),
+           jax.jit(lambda a: jrestore.single_scale_retinex(a, 80.0))(x))
     g = np.asarray(jcolor.rgb_to_gray(x))
     _assert_within(restore.richardson_lucy_gray(_t(g), 15),
                    jrestore.richardson_lucy_gray(g, iterations=15), 1, 0.001)
@@ -302,7 +303,7 @@ def test_document_stages_on_tpuimage_previous_stage(name):
     p = shadow.PRESETS["DOCUMENT"]
     r, mask = _copy_stage(x, "DOCUMENT", "retinex")
     _exact(shadow.get_shadow_mask_brightness(_t(x), p.shadow_v_threshold, p.mask_blur_ksize), mask)
-    _assert_within(restore.single_scale_retinex(_t(x), p.retinex_sigma), r, 1, 0.001)
+    _exact(restore.single_scale_retinex(_t(x), p.retinex_sigma), r)
     rblend, _ = _copy_stage(x, "DOCUMENT", "rblend")
     _exact(arith.add_weighted(_t(r), p.retinex_blend, _t(x), 1.0 - p.retinex_blend), rblend)
     stretched, _ = _copy_stage(x, "DOCUMENT", "stretch")
@@ -405,6 +406,40 @@ def test_enhance_shadow_batch(name):
     _exact(ours[1], single)
     with pytest.raises(ValueError, match="B, H, W, 3"):
         shadow.enhance_shadow_batch(xs[0], shadow.PRESETS[name], device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _photo():
+    return imageio.load_image_rgb(os.path.join(OUTPUTS, "scan_02_quad.png"))
+
+
+def test_portrait_on_the_whole_photo():
+    """PORTRAIT on the whole outputs/scan_02_quad.png (672x478), single
+    and in a batch beside its copy darkened to 1/4, within PATH_TOL
+    (measured max 2 on 246 values, > 1 on 14: the CLAHE's ties; the dark
+    copy exact). Inside tpuimage's PORTRAIT program, where the final blend
+    alone reads the CLAHE stage, the stage's L blend fuses its first
+    product; fusing the second, as GENERAL's program does, gave max 5 on
+    1,095 values."""
+    x = _photo()
+    xs = np.stack([x, x // 4])
+    preset, jpreset = shadow.PRESETS["PORTRAIT"], jshadow.PRESETS["PORTRAIT"]
+    ref = jshadow.enhance_shadow_protected(jnp.asarray(x), jpreset)[0]
+    _assert_within(shadow.enhance_shadow_protected(x, preset, device="cpu")[0], ref, *PATH_TOL)
+    ref_batch = jshadow.enhance_shadow_batch(jnp.asarray(xs), jpreset)[0]
+    ours = shadow.enhance_shadow_batch(xs, preset, device="cpu")[0]
+    _assert_within(ours, ref_batch, *PATH_TOL)
+    _exact(ours[1], ref_batch[1])
+
+
+def test_categorize_cues_on_whole_images():
+    """The three cues equal as f32 to tpuimage's jitted ones on images
+    whose sum of V passes 2**24, where XLA's tree reduce rounds its f32
+    sums (the exact sums differed in the last place of v_mean)."""
+    for x in (synth.shadowed_scene(0, 853, 1280), synth.white_page(0, 1200, 849),
+              imageio.load_image_rgb(os.path.join(OUTPUTS, "scan_03_warped.png")), _photo()):
+        ref = [float(v) for v in jax.jit(jshadow._categorize_cues)(jnp.asarray(x))]
+        assert [float(v) for v in shadow.categorize_cues(_t(x))] == ref
 
 
 def test_presets_carried_across():

@@ -55,7 +55,8 @@ def device_cues(stack: torch.Tensor):
     count = (binary == 255).sum(dim=(-2, -1), dtype=torch.int32).to(torch.float32)
     white_ratio = count * float(np.float32(1.0) / np.float32(h * w))
     line_count, overflow = hough_line_count(canny(gray, 50, 150), threshold=150,
-                                            max_lines=256, max_edges=cue_budget(h, w))
+                                            max_lines=256, max_edges=cue_budget(h, w),
+                                            return_overflow=True)
     return white_ratio, line_count, binary, overflow, gray
 
 

@@ -2,8 +2,8 @@
 ``tpuimage.core.borders``).
 
 Unlike tpuimage's ``pad2d`` (HW or HWC), this one pads the LAST two dims
-of a (..., H, W) tensor, so leading dims are a batch. Reflect-101 and
-replicate are index gathers built with numpy's own pad rules, so they
+of a (..., H, W) tensor, so leading dims are a batch. Reflect-101,
+reflect and replicate are index gathers built with numpy's own pad rules, so they
 take any dtype and any pad width, exactly as ``jnp.pad`` does.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 BORDER_REFLECT_101 = "reflect"   # cv2.BORDER_DEFAULT / BORDER_REFLECT_101
 BORDER_REPLICATE = "edge"        # cv2.BORDER_REPLICATE
+BORDER_REFLECT = "symmetric"     # cv2.BORDER_REFLECT
 BORDER_CONSTANT = "constant"     # cv2.BORDER_CONSTANT
 
 
@@ -29,7 +30,7 @@ def pad2d(img: torch.Tensor, top: int, bottom: int, left: int, right: int,
                          value, dtype=img.dtype, device=img.device)
         out[..., top:top + h, left:left + w] = img
         return out
-    if mode not in (BORDER_REFLECT_101, BORDER_REPLICATE):
+    if mode not in (BORDER_REFLECT_101, BORDER_REPLICATE, BORDER_REFLECT):
         raise ValueError(f"unsupported border mode {mode!r}")
     iy = _pad_index(img.shape[-2], top, bottom, mode)
     ix = _pad_index(img.shape[-1], left, right, mode)

@@ -51,14 +51,16 @@ def descale(x: torch.Tensor, n: int) -> torch.Tensor:
     return (i32(x) + (1 << (n - 1))) >> n
 
 
-def fma_f32(x: torch.Tensor, y: torch.Tensor, z) -> torch.Tensor:
+def fma_f32(x, y, z) -> torch.Tensor:
     """f32 ``x * y + z`` rounded once, as the fused multiply-add that XLA's
     compiler makes of a product feeding an add: the f64 product of two f32
     values is exact, and one rounding of the f64 sum to f32 is the fused
     result but for a double rounding at an f32 tie (an f64 sum exactly
     halfway between two f32 values), which the callers' inputs do not meet
-    in their tests."""
-    return (x.double() * y.double() + z).to(torch.float32)
+    in their tests. Each operand is an f32 tensor or a Python float holding
+    an f32 value."""
+    x, y, z = (v.double() if isinstance(v, torch.Tensor) else v for v in (x, y, z))
+    return (x * y + z).to(torch.float32)
 
 
 def fma_np(x, y, z) -> np.ndarray:
@@ -82,3 +84,60 @@ def pow_np(x: np.ndarray, p: float):
     if p == 1:
         return x, None
     return np.power(x.astype(np.float64), np.float64(p)).astype(np.float32), None
+
+
+def round_half_even(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even, in the input's float dtype (``jnp.round``)."""
+    return torch.round(x)
+
+
+def _window_sums(v: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """One level of XLA's tree rewrite of a reduce over the last two dims
+    (``v`` of shape (..., A, B)): windows of 32 along each dim longer than
+    32, zero-padded to a multiple of 32 with half the padding (rounded
+    down) before, the whole dim otherwise -> (..., A', B', window)."""
+    wa, wb = min(a, 32), min(b, 32)
+    pa, pb = -a % wa, -b % wb
+    v = torch.nn.functional.pad(v, (pb // 2, pb - pb // 2, pa // 2, pa - pa // 2))
+    na, nb = (a + pa) // wa, (b + pb) // wb
+    v = v.reshape(v.shape[:-2] + (na, wa, nb, wb)).transpose(-3, -2)
+    return v.reshape(v.shape[:-4] + (na, nb, wa * wb))
+
+
+def _accumulate_f32(v: torch.Tensor) -> torch.Tensor:
+    """f32 sum over the last dim, one rounding per element in order from 0.
+    On the card in one launch: torch's cumsum along the leading dim of a
+    2-D tensor of two or more columns is ATen's ``scan_outer_dim``, one
+    thread a column adding in order in the tensor's dtype (a zero column
+    keeps a single row off CUB's parallel scan). The host's cumsum adds
+    in f64, so there it is a loop of f32 adds."""
+    if v.is_cuda:
+        cols = v.reshape(-1, v.shape[-1]).t()
+        cols = torch.cat([cols, torch.zeros_like(cols[:, :1])], dim=1)
+        return torch.cumsum(cols, dim=0)[-1, :-1].reshape(v.shape[:-1])
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+    for k in range(v.shape[-1]):
+        acc = acc + v[..., k]
+    return acc
+
+
+def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of integer-valued ``x`` (..., A, B) over its last two
+    dims as XLA's CPU compiler computes ``jnp.sum`` of it in f32: its tree
+    rewrite sums windows of up to 32 x 32 (:func:`_window_sums`), level
+    after level until neither dim is longer than 32, then a plain reduce;
+    each window and the reduce add in row-major order, rounding each add.
+    The first level's windows of bytes are exact (at most 1024 * 255), so
+    they are summed as integers; the rest one add at a time
+    (:func:`_accumulate_f32`)."""
+    v = x
+    a, b = int(v.shape[-2]), int(v.shape[-1])
+    first = True
+    while a > 32 or b > 32:
+        w = _window_sums(v, a, b)
+        v = w.sum(dim=-1, dtype=torch.int64).to(torch.float32) if first else _accumulate_f32(w)
+        a, b, first = int(v.shape[-2]), int(v.shape[-1]), False
+    flat = v.reshape(v.shape[:-2] + (a * b,))
+    if first:
+        return flat.sum(dim=-1, dtype=torch.int64).to(torch.float32)
+    return _accumulate_f32(flat)

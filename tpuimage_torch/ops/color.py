@@ -123,50 +123,106 @@ def bgr_to_lab(img: torch.Tensor) -> torch.Tensor:
     return rgb_to_lab(img.flip(-1))
 
 
-def _div(x: torch.Tensor, d: float) -> torch.Tensor:
-    """``x / d`` as a true division. On a CUDA tensor PyTorch turns
-    ``tensor / python_scalar`` into a multiply by the reciprocal, which
-    rounds differently from tpuimage's divide; a device scalar keeps it a
-    division on both devices."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+def _lab_inv_constants() -> dict:
+    """The f32 constants of tpuimage's jitted lab_to_rgb as XLA folds them:
+    each ``/ c`` a product with the f32 reciprocal, ``l * (100 / 255) /
+    903.3`` and each matrix entry times its white point one constant."""
+    c = np.float32(100.0 / 255.0)
+    m = _XYZ2SRGB_F32
+    white = (np.float32(_D65[0]), np.float32(1.0), np.float32(_D65[2]))
+    return {"l": float(c), "r116": float(np.float32(1) / np.float32(116)),
+            "r500": float(np.float32(1) / np.float32(500)),
+            "r200": float(np.float32(1) / np.float32(200)),
+            "r7.787": float(np.float32(1) / np.float32(7.787)),
+            "-16/116": float(-np.float32(16.0 / 116.0)),
+            "l/903.3": float(c * (np.float32(1) / np.float32(903.3))),
+            "m": [[float(m[r, j] * white[j]) for j in range(3)] for r in range(3)]}
 
 
-def _cube(t: torch.Tensor) -> torch.Tensor:
-    """``t ** 3`` as XLA evaluates it (integer_pow: t * (t * t))."""
-    return t * (t * t)
+_LAB_INV = _lab_inv_constants()
 
 
 def lab_to_rgb(img: torch.Tensor, impl: str = "float") -> torch.Tensor:
     """(..., 3) uint8 Lab -> (..., 3) uint8 RGB: tpuimage's float path
-    (Lab2RGBfloat with 8-bit rescale and the sRGB gamma), op for op; or,
-    with ``impl="lut"``, its integer fixed-point path (:func:`_lab_to_rgb_lut`),
-    which the sharded night pipeline uses."""
+    (Lab2RGBfloat with 8-bit rescale and the sRGB gamma) as XLA's CPU
+    compiler computes it jitted: its constants folded
+    (:func:`_lab_inv_constants`), ``a / 500`` and ``b / 200`` fused into
+    ``fx`` and ``fz``, and of each row's three products the x (the y in
+    the G row) and then the z product fused, found on every (L, a, b) byte
+    triple; the linear value's sRGB byte is then looked up among XLA's
+    thresholds. With ``impl="lut"``, its integer fixed-point path
+    (:func:`_lab_to_rgb_lut`), which the sharded night pipeline uses."""
     if impl == "lut":
         return _lab_to_rgb_lut(img)
     if impl != "float":
         raise ValueError(f"lab_to_rgb: impl must be 'float' or 'lut', got {impl!r}")
-    lum = f32(img[..., 0]) * (100.0 / 255.0)
-    a = f32(img[..., 1]) - 128.0
-    b = f32(img[..., 2]) - 128.0
-
-    fy = _div(lum + 16.0, 116.0)
-    fx = fy + _div(a, 500.0)
-    fz = fy - _div(b, 200.0)
+    lum8 = f32(img[..., 0])
+    lum = lum8 * _LAB_INV["l"]
+    fy = (lum + 16.0) * _LAB_INV["r116"]
+    fx = fma_f32(f32(img[..., 1]) - 128.0, _LAB_INV["r500"], fy)
+    fz = fma_f32(128.0 - f32(img[..., 2]), _LAB_INV["r200"], fy)
 
     def finv(t):
-        t3 = _cube(t)
-        return torch.where(t3 > 0.008856, t3, _div(t - 16.0 / 116.0, 7.787))
+        t3 = (t * t) * t
+        return torch.where(t3 > 0.008856, t3, (t + _LAB_INV["-16/116"]) * _LAB_INV["r7.787"])
 
-    y = torch.where(lum > 8.0, _cube(fy), _div(lum, 903.3))
-    x = finv(fx) * _D65[0]
-    z = finv(fz) * _D65[2]
-    m = [[float(v) for v in row] for row in _XYZ2SRGB_F32]
-    rgb_lin = torch.stack([m[c][0] * x + m[c][1] * y + m[c][2] * z for c in range(3)],
-                          dim=-1)
+    x, z = finv(fx), finv(fz)
+    y = torch.where(lum > 8.0, (fy * fy) * fy, lum8 * _LAB_INV["l/903.3"])
+    k = _LAB_INV["m"]
+    rgb_lin = torch.stack([fma_f32(z, k[0][2], fma_f32(x, k[0][0], y * k[0][1])),
+                           fma_f32(z, k[1][2], fma_f32(y, k[1][1], x * k[1][0])),
+                           fma_f32(z, k[2][2], fma_f32(x, k[2][0], y * k[2][1]))], dim=-1)
     rgb_lin = torch.clamp(rgb_lin, 0.0, 1.0)
-    srgb = torch.where(rgb_lin <= 0.0031308, rgb_lin * 12.92,
-                       1.055 * rgb_lin ** (1.0 / 2.4) - 0.055)
-    return saturate_u8(srgb * 255.0)
+    return torch.bucketize(rgb_lin, _srgb_thresholds(rgb_lin.device), right=True).to(torch.uint8)
+
+
+# The smallest f32 linear value in [0, 1] whose sRGB byte is 1 .. 255 in
+# tpuimage's jitted lab_to_rgb tail, saturate((v <= 0.0031308 ? v * 12.92 :
+# 1.055 * v ** (1 / 2.4) - 0.055) * 255), as f32 bit patterns. XLA's CPU
+# f32 pow is the host libm's powf, which torch's f32 pow (vector and scalar
+# paths differ in the last place) and CUDA's powf are not; the byte is
+# monotone in v over every f32 in [0, 1], so these 255 values give it
+# exactly (tests/test_torch_night.py recomputes them).
+_SRGB_THRESHOLD_BITS = (
+    0x391f22b5, 0x39eeb40e, 0x3a46eb62, 0x3a8b3e5d, 0x3ab3070c, 0x3adacfb7, 0x3b014c33, 0x3b153089,
+    0x3b2914e1, 0x3b3cf936, 0x3b50f2d1, 0x3b65fb9a, 0x3b7c3404, 0x3b89d060, 0x3b962333, 0x3ba314bc,
+    0x3bb0a733, 0x3bbedcb6, 0x3bcdb76e, 0x3bdd3968, 0x3bed64b2, 0x3bfe3b44, 0x3c07df92, 0x3c10f91b,
+    0x3c1a6b32, 0x3c2436c7, 0x3c2e5cc9, 0x3c38de19, 0x3c43bba5, 0x3c4ef649, 0x3c5a8ee5, 0x3c668654,
+    0x3c72dd73, 0x3c7f950e, 0x3c865703, 0x3c8d1490, 0x3c940398, 0x3c9b247c, 0x3ca277a8, 0x3ca9fd77,
+    0x3cb1b654, 0x3cb9a299, 0x3cc1c2ac, 0x3cca16e3, 0x3cd29fa7, 0x3cdb5d4a, 0x3ce45034, 0x3ced78b4,
+    0x3cf6d72f, 0x3d0035fc, 0x3d051bb6, 0x3d0a1cec, 0x3d0f39d1, 0x3d14728a, 0x3d19c745, 0x3d1f382b,
+    0x3d24c56a, 0x3d2a6f21, 0x3d303586, 0x3d3618b6, 0x3d3c18e6, 0x3d423630, 0x3d4870cb, 0x3d4ec8d3,
+    0x3d553e77, 0x3d5bd1d3, 0x3d62831c, 0x3d69526a, 0x3d703ff2, 0x3d774bca, 0x3d7e7627, 0x3d82df90,
+    0x3d869374, 0x3d8a56cc, 0x3d8e29af, 0x3d920c28, 0x3d95fe52, 0x3d9a0036, 0x3d9e11ee, 0x3da23384,
+    0x3da66512, 0x3daaa6a0, 0x3daef849, 0x3db35a15, 0x3db7cc1d, 0x3dbc4e6a, 0x3dc0e116, 0x3dc5842a,
+    0x3dca37bd, 0x3dcefbd7, 0x3dd3d092, 0x3dd8b5f6, 0x3dddac1c, 0x3de2b30a, 0x3de7cadc, 0x3decf395,
+    0x3df22d52, 0x3df77817, 0x3dfcd3fe, 0x3e012087, 0x3e03dfaf, 0x3e06a77c, 0x3e0977f8, 0x3e0c5127,
+    0x3e0f3316, 0x3e121dc6, 0x3e151145, 0x3e180d95, 0x3e1b12c4, 0x3e1e20d1, 0x3e2137cc, 0x3e2457b5,
+    0x3e27809a, 0x3e2ab27c, 0x3e2ded69, 0x3e313162, 0x3e347e73, 0x3e37d49d, 0x3e3b33ee, 0x3e3e9c68,
+    0x3e420e18, 0x3e4588fa, 0x3e490d25, 0x3e4c9a8f, 0x3e50314f, 0x3e53d15c, 0x3e577acd, 0x3e5b2d99,
+    0x3e5ee9d6, 0x3e62af7c, 0x3e667ea1, 0x3e6a573c, 0x3e6e3963, 0x3e72250e, 0x3e761a53, 0x3e7a192d,
+    0x3e7e21aa, 0x3e8119e2, 0x3e8327ca, 0x3e853a87, 0x3e875224, 0x3e896e9e, 0x3e8b8ffe, 0x3e8db641,
+    0x3e8fe172, 0x3e92118b, 0x3e944698, 0x3e968094, 0x3e98bf8b, 0x3e9b0377, 0x3e9d4c63, 0x3e9f9a4b,
+    0x3ea1ed3a, 0x3ea4452a, 0x3ea6a228, 0x3ea9042d, 0x3eab6b46, 0x3eadd76b, 0x3eb048ac, 0x3eb2beff,
+    0x3eb53a72, 0x3eb7baff, 0x3eba40b2, 0x3ebccb86, 0x3ebf5b84, 0x3ec1f0a7, 0x3ec48afd, 0x3ec72a7d,
+    0x3ec9cf35, 0x3ecc791e, 0x3ecf2845, 0x3ed1dca2, 0x3ed49644, 0x3ed75521, 0x3eda1948, 0x3edce2b1,
+    0x3edfb16a, 0x3ee2856a, 0x3ee55ebf, 0x3ee83d62, 0x3eeb215f, 0x3eee0aaf, 0x3ef0f961, 0x3ef3ed69,
+    0x3ef6e6d9, 0x3ef9e5a6, 0x3efce9e0, 0x3efff37c, 0x3f018145, 0x3f030b82, 0x3f049878, 0x3f062827,
+    0x3f07ba94, 0x3f094fba, 0x3f0ae7a1, 0x3f0c8244, 0x3f0e1fac, 0x3f0fbfd2, 0x3f1162bf, 0x3f13086e,
+    0x3f14b0e6, 0x3f165c22, 0x3f180a2a, 0x3f19baf9, 0x3f1b6e97, 0x3f1d24fe, 0x3f1ede37, 0x3f209a3b,
+    0x3f225914, 0x3f241abb, 0x3f25df39, 0x3f27a688, 0x3f2970b0, 0x3f2b3dac, 0x3f2d0d84, 0x3f2ee031,
+    0x3f30b5be, 0x3f328e25, 0x3f34696b, 0x3f36478c, 0x3f382891, 0x3f3a0c73, 0x3f3bf33c, 0x3f3ddce5,
+    0x3f3fc977, 0x3f41b8eb, 0x3f43ab4a, 0x3f45a08f, 0x3f4798c1, 0x3f4993da, 0x3f4b91e4, 0x3f4d92d8,
+    0x3f4f96bf, 0x3f519d91, 0x3f53a75a, 0x3f55b410, 0x3f57c3bf, 0x3f59d65e, 0x3f5bebf8, 0x3f5e0485,
+    0x3f60200f, 0x3f623e8e, 0x3f64600d, 0x3f668484, 0x3f68abfc, 0x3f6ad671, 0x3f6d03e8, 0x3f6f345b,
+    0x3f7167d5, 0x3f739e4d, 0x3f75d7cf, 0x3f781452, 0x3f7a53e0, 0x3f7c9671, 0x3f7edc13,
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _srgb_thresholds(device) -> torch.Tensor:
+    bits = np.array(_SRGB_THRESHOLD_BITS, dtype=np.uint32)
+    return torch.from_numpy(bits.view(np.float32).copy()).to(device)
 
 
 # --- the integer fixed-point Lab -> RGB (tpuimage's impl="lut") -----------

@@ -3,12 +3,13 @@
 
 Canny is OpenCV's exact algorithm on each (H, W) plane: Sobel3 with a
 reflect-101 border (as ``tpuimage.ops.edges._conv3x3_i32`` pads), L1
-magnitude, integer sector NMS with TG22 in Q15 and zero-filled shifts,
-double threshold, then hysteresis grown to the weak-reachability
-fixpoint: 8 masked 3x3 growth steps per convergence check, at most
-``h + w`` checks, like tpuimage's CPU schedule. Growth is monotone, so the
-batch runs until its slowest plane converges and each plane's result is
-its own fixpoint.
+magnitude (or the squared L2 one against the squared thresholds),
+integer sector NMS with TG22 in Q15 and zero-filled shifts, double
+threshold, then hysteresis grown to the weak-reachability fixpoint: 8
+masked 3x3 growth steps per convergence check, at most ``h + w`` checks
+unless asked otherwise, like tpuimage's CPU schedule. Growth is
+monotone, so the batch runs until its slowest plane converges and each
+plane's result is its own fixpoint.
 """
 from __future__ import annotations
 
@@ -99,15 +100,26 @@ def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return p[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
 
 
-def canny_pre(gray: torch.Tensor, low: float, high: float):
-    """Sobel3 -> L1 magnitude -> sector NMS -> double threshold. Returns
-    the (strong, weak) bool maps of each plane."""
+def canny_pre(gray: torch.Tensor, low: float, high: float, l2_gradient: bool = False,
+              row_valid=None):
+    """Sobel3 -> L1 (or, with ``l2_gradient``, squared L2) magnitude ->
+    sector NMS -> double threshold. Returns the (strong, weak) bool maps of
+    each plane. ``row_valid`` (H,) bool zeroes the magnitude of the rows
+    outside the image (a halo'd block's), as the unsharded NMS sees 0
+    there."""
     if low > high:
         low, high = high, low
     dx = sobel(gray, 1, 0)
     dy = sobel(gray, 0, 1)
-    mag = torch.abs(dx) + torch.abs(dy)
-    low_t, high_t = float(int(low)), float(int(high))  # cv2 truncates for L1
+    if l2_gradient:
+        mag = dx * dx + dy * dy
+        low_t, high_t = float(low) ** 2, float(high) ** 2
+    else:
+        mag = torch.abs(dx) + torch.abs(dy)
+        low_t, high_t = float(int(low)), float(int(high))  # cv2 truncates for L1
+    if row_valid is not None:
+        valid = torch.as_tensor(row_valid, dtype=torch.bool, device=mag.device)
+        mag = torch.where(valid[:, None], mag, torch.zeros_like(mag))
 
     xs = torch.abs(dx)
     ys = torch.abs(dy) * 32768.0
@@ -155,10 +167,19 @@ def _hysteresis(strong: torch.Tensor, weak: torch.Tensor, max_iters: int) -> tor
     return s
 
 
-def canny(gray: torch.Tensor, low: float, high: float) -> torch.Tensor:
-    """cv2.Canny (aperture 3, L1) on each uint8 (H, W) plane of a
-    (..., H, W) tensor -> uint8 0/255."""
-    strong, weak = canny_pre(gray, low, high)
+def canny(gray: torch.Tensor, low: float, high: float, l2_gradient: bool = False,
+          max_hysteresis_iters=None) -> torch.Tensor:
+    """cv2.Canny (aperture 3, L1 or ``l2_gradient``) on each uint8 (H, W)
+    plane of a (..., H, W) tensor -> uint8 0/255; at most
+    ``max_hysteresis_iters`` convergence checks (default h + w)."""
+    strong, weak = canny_pre(gray, low, high, l2_gradient)
     h, w = gray.shape[-2], gray.shape[-1]
-    strong = _hysteresis(strong, weak, h + w)
+    strong = _hysteresis(strong, weak, max_hysteresis_iters or (h + w))
     return strong.to(torch.uint8) * 255
+
+
+def canny_batch(grays: torch.Tensor, low: float, high: float, l2_gradient: bool = False,
+                max_hysteresis_iters=None) -> torch.Tensor:
+    """:func:`canny` of a (B, H, W) stack (``canny`` takes any leading
+    dims; each plane is its own fixpoint)."""
+    return canny(grays, low, high, l2_gradient, max_hysteresis_iters)

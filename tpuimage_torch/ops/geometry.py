@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuimage_torch.core.dtypes import f32, saturate_u8
+from tpuimage_torch.core.dtypes import f32, fma_f32, saturate_u8
 
 _RESIZE_BITS = 11          # INTER_RESIZE_COEF_BITS
 _RESIZE_SCALE = 1 << _RESIZE_BITS
@@ -216,10 +216,14 @@ def get_rotation_matrix_2d(center, angle_deg: float, scale: float = 1.0) -> np.n
 
 def _bilinear_gather_u8(img: torch.Tensor, map_x: torch.Tensor,
                         map_y: torch.Tensor, border: str,
-                        border_value: float = 0.0) -> torch.Tensor:
+                        border_value: float = 0.0,
+                        rows_first: bool = False) -> torch.Tensor:
     """Sample each image of a (B, H, W[, C]) uint8 batch at float coords
     (B, oh, ow) with cv2 INTER_LINEAR semantics; ``border`` is
-    ``constant`` (``border_value``) or ``replicate``."""
+    ``constant`` (``border_value``) or ``replicate``. The sum is the four
+    taps times their weight products, or with ``rows_first`` the two rows'
+    y-blends blended in x (``rotate_traced_tiled``'s one-hot contractions
+    in tpuimage's jitted program: each product rounded, none fused)."""
     b, h, w = img.shape[0], img.shape[1], img.shape[2]
     chan = img.dim() == 4
     x0 = torch.floor(map_x)
@@ -246,6 +250,10 @@ def _bilinear_gather_u8(img: torch.Tensor, map_x: torch.Tensor,
         ww = wy * wx
         return ww[..., None] if chan else ww
 
+    if rows_first:
+        r0 = tap(y0i, x0i) * (1.0 - fy) + tap(y0i + 1, x0i) * fy
+        r1 = tap(y0i, x0i + 1) * (1.0 - fy) + tap(y0i + 1, x0i + 1) * fy
+        return saturate_u8(r0 * (1.0 - fx) + r1 * fx)
     acc = (tap(y0i, x0i) * wmul(1.0 - fy, 1.0 - fx)
            + tap(y0i, x0i + 1) * wmul(1.0 - fy, fx)
            + tap(y0i + 1, x0i) * wmul(fy, 1.0 - fx)
@@ -314,33 +322,38 @@ def translate(img: torch.Tensor, tx: float, ty: float,
     return warp_affine(img, M, h, w, border=border)
 
 
-def warp_perspective_batch(imgs: torch.Tensor, minv: torch.Tensor,
-                           out_h: int, out_w: int) -> torch.Tensor:
-    """cv2.warpPerspective INTER_LINEAR (constant-0 border) of a
-    (B, H, W, C) uint8 batch with per-image INVERSE homographies
-    (B, 3, 3) float32."""
+def warp_perspective_batch(imgs: torch.Tensor, Minv: torch.Tensor,  # noqa: N803
+                           out_h: int, out_w: int, border: str = "constant",
+                           border_value: float = 0.0) -> torch.Tensor:
+    """cv2.warpPerspective INTER_LINEAR of a (B, H, W, C) uint8 batch with
+    per-image INVERSE homographies (B, 3, 3) float32; ``border`` is
+    ``constant`` (``border_value``) or ``replicate``."""
     ys, xs = _grid(out_h, out_w, imgs.device)
-    a = minv.to(torch.float32).reshape(-1, 9, 1, 1)
+    a = Minv.to(torch.float32).reshape(-1, 9, 1, 1)
     ac = lambda i: a[:, i]  # noqa: E731
     denom = ac(6) * xs + ac(7) * ys + ac(8)
     denom = torch.where(denom != 0, denom, torch.full_like(denom, 1e-20))
     sx = (ac(0) * xs + ac(1) * ys + ac(2)) / denom
     sy = (ac(3) * xs + ac(4) * ys + ac(5)) / denom
-    return _bilinear_gather_u8(imgs, sx, sy, border="constant")
+    return _bilinear_gather_u8(imgs, sx, sy, border=border, border_value=border_value)
 
 
 def rotate_pages(imgs: torch.Tensor, angles_deg: torch.Tensor,
                  max_angle: float) -> torch.Tensor:
     """Rotate each (H, W) page of a (B, H, W) uint8 batch about its center
     by its angle in degrees, clipped to +-max_angle, bilinear with a
-    replicate border: the output contract of tpuimage's
-    ``rotate_traced_tiled`` (the deskew rotation)."""
+    replicate border: tpuimage's ``rotate_traced_tiled`` (the deskew
+    rotation) as its jitted program computes it. ``cos`` / ``sin`` are
+    taken in f64 and rounded (torch's f32 ``cos`` is an ulp off XLA's at
+    +-4 degrees), XLA fuses ``ca * xr`` into ``sx`` and ``sa * xr`` into
+    ``sy``, and the taps are blended rows first."""
     b, h, w = imgs.shape
     cx, cy = w / 2.0, h / 2.0
-    a = torch.deg2rad(torch.clamp(f32(angles_deg), -max_angle, max_angle))
-    ca = torch.cos(a).reshape(b, 1, 1)
-    sa = torch.sin(a).reshape(b, 1, 1)
+    a = torch.deg2rad(torch.clamp(f32(angles_deg), -max_angle, max_angle)).double()
+    ca = torch.cos(a).to(torch.float32).reshape(b, 1, 1)
+    sa = torch.sin(a).to(torch.float32).reshape(b, 1, 1)
     gy, gx = _grid(h, w, imgs.device)
-    sy = sa * (gx - cx) + ca * (gy - cy) + cy
-    sx = ca * (gx - cx) - sa * (gy - cy) + cx
-    return _bilinear_gather_u8(imgs, sx, sy, border="replicate")
+    xr, yr = gx - cx, gy - cy
+    sx = fma_f32(ca, xr, -(sa * yr)) + cx
+    sy = fma_f32(sa, xr, ca * yr) + cy
+    return _bilinear_gather_u8(imgs, sx, sy, border="replicate", rows_first=True)

@@ -35,6 +35,12 @@ def hist256(gray: torch.Tensor) -> torch.Tensor:
     return hist256_batch(gray.reshape(1, -1))[0]
 
 
+def otsu_threshold(gray: torch.Tensor) -> torch.Tensor:
+    """Otsu threshold of a uint8 image (all its values, one histogram):
+    :func:`hist256`, then :func:`otsu_from_hist`; f32 scalar."""
+    return otsu_from_hist(hist256(gray))
+
+
 def otsu_from_hist(hist: torch.Tensor) -> torch.Tensor:
     """Otsu threshold from (..., 256) histograms -> (...,) float32.
 

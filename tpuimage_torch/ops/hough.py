@@ -78,10 +78,12 @@ def compact_edges(edges: torch.Tensor, k: int):
 
 
 def hough_accumulator(edges: torch.Tensor, rho: float = 1.0,
-                      theta_bins: int = 180, max_edges: int = 0):
-    """(B, H, W) edge maps -> ((B, numrho, theta_bins) int32 votes, (B,)
-    bool overflow), binned like cv2.HoughLines with theta = pi/theta_bins:
-    ``r = rint(x cos t + y sin t) + (numrho - 1) / 2``."""
+                      theta_bins: int = 180, max_edges: int = 0,
+                      return_overflow: bool = False):
+    """(B, H, W) edge maps -> (B, numrho, theta_bins) int32 votes, binned
+    like cv2.HoughLines with theta = pi/theta_bins: ``r = rint(x cos t + y
+    sin t) + (numrho - 1) / 2``; with ``return_overflow`` also the (B,)
+    bool edge-budget overflow (more edges than ``max_edges``)."""
     _, h, w = edges.shape
     numrho = int(round(((w + h) * 2 + 1) / rho))
     if max_edges <= 0:
@@ -92,7 +94,7 @@ def hough_accumulator(edges: torch.Tensor, rho: float = 1.0,
     cos_t = torch.from_numpy(cos_np).to(edges.device)
     sin_t = torch.from_numpy(sin_np).to(edges.device)
     acc = hough_votes(xs, ys, counts, cos_t, sin_t, numrho, (numrho - 1) // 2)
-    return acc, overflow
+    return (acc, overflow) if return_overflow else acc
 
 
 def _is_peak(acc: torch.Tensor, threshold: int) -> torch.Tensor:
@@ -127,32 +129,40 @@ def fold_median_from_acc(acc: torch.Tensor, threshold: int,
 
 def hough_fold_median_angle(edges: torch.Tensor, threshold: int,
                             rho: float = 1.0, theta_bins: int = 180,
-                            max_edges: int = 0):
-    """DocScanner's deskew statistic over (B, H, W) edge maps -> ((B,)
-    float32 angle, (B,) bool edge-budget overflow)."""
+                            return_overflow: bool = False, max_edges: int = 0):
+    """DocScanner's deskew statistic over (B, H, W) edge maps -> (B,)
+    float32 angle; with ``return_overflow`` also the (B,) bool edge-budget
+    overflow."""
     acc, overflow = hough_accumulator(edges, rho=rho, theta_bins=theta_bins,
-                                      max_edges=max_edges)
-    return fold_median_from_acc(acc, threshold, theta_bins), overflow
+                                      max_edges=max_edges, return_overflow=True)
+    angle = fold_median_from_acc(acc, threshold, theta_bins)
+    return (angle, overflow) if return_overflow else angle
 
 
 def hough_line_count(edges: torch.Tensor, threshold: int, rho: float = 1.0,
-                     theta_bins: int = 180, max_lines: int = 64, max_edges: int = 0):
+                     theta_bins: int = 180, max_lines: int = 64, max_edges: int = 0,
+                     return_overflow: bool = False):
     """min(number of Hough peaks above threshold, max_lines) of each (B, H,
-    W) edge map -> ((B,) int32 counts, (B,) bool edge-budget overflow): the
-    count of ``hough_lines``' valid lines, without ordering the peaks."""
+    W) edge map -> (B,) int32 counts, the count of ``hough_lines``' valid
+    lines without ordering the peaks; with ``return_overflow`` also the
+    (B,) bool edge-budget overflow."""
     acc, overflow = hough_accumulator(edges, rho=rho, theta_bins=theta_bins,
-                                      max_edges=max_edges)
-    n = _is_peak(acc, threshold).sum(dim=(-2, -1), dtype=torch.int32)
-    return torch.clamp(n, max=max_lines), overflow
+                                      max_edges=max_edges, return_overflow=True)
+    n = torch.clamp(_is_peak(acc, threshold).sum(dim=(-2, -1), dtype=torch.int32),
+                    max=max_lines)
+    return (n, overflow) if return_overflow else n
 
 
 def hough_lines(edges: torch.Tensor, threshold: int, rho: float = 1.0,
-                theta_bins: int = 180, max_lines: int = 64, max_edges: int = 0):
+                theta_bins: int = 180, max_lines: int = 64, max_edges: int = 0,
+                return_overflow: bool = False):
     """cv2.HoughLines analog over (B, H, W) edge maps -> ((B, max_lines, 2)
-    [rho, theta] f32, (B, max_lines) valid). Peaks are ordered by votes,
-    ties by lower flat (rho, theta) index, as ``lax.top_k`` orders them."""
-    acc, _ = hough_accumulator(edges, rho=rho, theta_bins=theta_bins,
-                               max_edges=max_edges)
+    [rho, theta] f32, (B, max_lines) valid), and with ``return_overflow``
+    the (B,) bool edge-budget overflow after them. Peaks are ordered by
+    votes, ties by lower flat (rho, theta) index, as ``lax.top_k`` orders
+    them."""
+    acc, overflow = hough_accumulator(edges, rho=rho, theta_bins=theta_bins,
+                                      max_edges=max_edges, return_overflow=True)
     b, numrho = acc.shape[0], acc.shape[1]
     votes = torch.where(_is_peak(acc, threshold), acc, torch.zeros_like(acc))
     top_v, top_i = torch.sort(votes.reshape(b, -1), dim=-1, descending=True,
@@ -162,7 +172,8 @@ def hough_lines(edges: torch.Tensor, threshold: int, rho: float = 1.0,
     t_idx = top_i % theta_bins
     rhos = (f32(r_idx) - (numrho - 1) // 2) * rho
     thetas = f32(t_idx) * (math.pi / theta_bins)
-    return torch.stack([rhos, thetas], dim=-1), top_v > 0
+    lines = torch.stack([rhos, thetas], dim=-1)
+    return (lines, top_v > 0, overflow) if return_overflow else (lines, top_v > 0)
 
 
 def hough_lines_p_det(edges: torch.Tensor, threshold: int,

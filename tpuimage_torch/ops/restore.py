@@ -8,9 +8,9 @@ fuses each product into the add that takes it), ``gray / 255`` a product
 with the f32 reciprocal, and the Richardson-Lucy convolution as 25
 shifted f32 multiply-adds in true-convolution order (no cuDNN call, whose
 TF32 default would make the card differ from the host). The logarithm is
-the correctly rounded one, which XLA's f32 log need not be, and XLA's
-convolution order is its own: the tests hold these two within a stated
-bound.
+XLA's CPU f32 log (Cephes' polynomial, :func:`_log_f32`); XLA's
+convolution order is its own, and the tests hold Richardson-Lucy within
+a stated bound.
 """
 from __future__ import annotations
 
@@ -18,17 +18,44 @@ import numpy as np
 import torch
 
 from tpuimage_torch.core.borders import BORDER_CONSTANT, pad2d
-from tpuimage_torch.core.dtypes import f32, saturate_u8
+from tpuimage_torch.core.dtypes import f32, fma_f32, saturate_u8
 from tpuimage_torch.ops.filters import gaussian_blur_f32, get_gaussian_kernel
 
 _RECIP_255 = float(np.float32(1.0) / np.float32(255.0))
 
 
+# Cephes' logf coefficients, as XLA's CPU compiler evaluates f32 log.
+_LOG_P = [float(np.float32(c)) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+    -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)]
+_LOG_Q1 = float(np.float32(-2.12194440e-4))
+_LOG_Q2 = float(np.float32(0.693359375))
+_SQRTHF = float(np.float32(0.707106781186547524))
+
+
 def _log_f32(x: torch.Tensor) -> torch.Tensor:
-    """f32 log, correctly rounded (through f64) on every device and thread
-    count: PyTorch's f32 log takes a vector or a scalar path by where an
-    element falls in a thread's chunk, which differ in the last place."""
-    return torch.log(x.double()).to(torch.float32)
+    """f32 log of positive normal values as XLA's CPU compiler computes it
+    (Cephes' logf: frexp, the mantissa shifted below sqrt(1/2), a degree-8
+    polynomial in three fused multiply-add chains, the exponent's two
+    parts and the -x^2/2 term fused in), the same on every device and
+    thread count. Equal to jitted ``jnp.log`` on every f32 in [1, 257],
+    the Retinex's domain (log(I + 1) and log(blur + 1)); the correctly
+    rounded log is not (it differs on 5.8% of them)."""
+    m, e = torch.frexp(x)
+    e = e.to(torch.float32)
+    below = m < _SQRTHF
+    t = (m - 1.0) + torch.where(below, m, torch.zeros_like(m))
+    e = e - below.to(torch.float32)
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = fma_f32(fma_f32(t, p[0], p[1]), t, p[2])
+    y1 = fma_f32(fma_f32(t, p[3], p[4]), t, p[5])
+    y2 = fma_f32(fma_f32(t, p[6], p[7]), t, p[8])
+    y = fma_f32(fma_f32(y, x3, y1), x3, y2)
+    y = fma_f32(y, x3, _LOG_Q1 * e)
+    t = fma_f32(-0.5, x2, t)
+    return fma_f32(_LOG_Q2, e, t + y)
 
 
 def single_scale_retinex(rgb: torch.Tensor, sigma: float = 80.0) -> torch.Tensor:

@@ -18,6 +18,13 @@ def threshold_binary(gray: torch.Tensor, thresh, maxval: int = 255) -> torch.Ten
                        torch.tensor(0, dtype=torch.uint8, device=gray.device))
 
 
+def threshold_binary_inv(gray: torch.Tensor, thresh, maxval: int = 255) -> torch.Tensor:
+    """cv2.THRESH_BINARY_INV: dst = src > thresh ? 0 : maxval."""
+    return torch.where(f32(gray) > thresh,
+                       torch.tensor(0, dtype=torch.uint8, device=gray.device),
+                       torch.tensor(maxval, dtype=torch.uint8, device=gray.device))
+
+
 def threshold_otsu(gray: torch.Tensor, maxval: int = 255):
     """cv2.threshold(..., THRESH_BINARY + THRESH_OTSU) on each (H, W) plane
     of a (..., H, W) uint8 tensor -> (thresholds (...,) float32, binary)."""

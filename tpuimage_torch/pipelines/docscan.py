@@ -225,7 +225,7 @@ def _deskew_angle(binary: torch.Tensor, canny_low: int, canny_high: int,
     angles, zeroed where |median| > max_rotate. (B, H, W) -> ((B,) f32
     angle, (B,) bool edge-budget overflow)."""
     edges = canny(binary, canny_low, canny_high)
-    med, overflow = hough_fold_median_angle(edges, threshold=150,
+    med, overflow = hough_fold_median_angle(edges, threshold=150, return_overflow=True,
                                             max_edges=max_edges)
     return torch.where(torch.abs(med) > max_rotate, torch.zeros_like(med), med), overflow
 

@@ -24,6 +24,9 @@ from tpuimage_torch.io.imageio import ensure_dir, load_image_rgb, save_image
 from tpuimage_torch.ops import kernels
 from tpuimage_torch.ops.histogram import hist256_batch, otsu_from_hist
 
+KSIZE = 3          # the 3x3 rectangle the erode and the close use
+ITERATIONS = 1
+
 
 def morphseq_stages(rgb, device=None) -> Dict[str, torch.Tensor]:
     """uint8 (..., H, W, 3) RGB -> stage dict with tpuimage's keys

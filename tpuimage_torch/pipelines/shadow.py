@@ -30,13 +30,15 @@ CPU compiler fuses a product into the add that takes it), ``soft / 255``
 is a product with the f32 reciprocal, ``mask * strength`` folds the two
 constants, and of each blend's two products the second is fused into the
 add, found against copies of those programs, single and vmapped alike.
-One exception: XLA recomputes a stage inside every fusion that reads it,
+Two exceptions. Where the final blend alone reads the CLAHE stage
+(PORTRAIT: no stretch, no unsharp), the CLAHE's L blend fuses its first
+product, ``l_clahe * bright``. And XLA recomputes a stage inside every fusion that reads it,
 and where the unsharp's add reads the stretch's blend (DOCUMENT,
 GENERAL) that fusion rounds its first product instead, while the
 unsharp's blur still reads the second; so with an unsharp the stretch is
-computed both ways. The categorisation's means are exact counts (or
-integer sums) times the f32 reciprocal of the pixel count, as XLA
-computes ``jnp.mean``.
+computed both ways. The categorisation's means are sums rounded as
+XLA's tree reduce rounds them times the f32 reciprocal of the pixel
+count, as XLA computes ``jnp.mean``.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ import numpy as np
 import torch
 
 from tpuimage_torch.core.device import as_input
-from tpuimage_torch.core.dtypes import f32, fma_f32, trunc_u8
+from tpuimage_torch.core.dtypes import f32, fma_f32, trunc_u8, xla_sum_f32
 from tpuimage_torch.ops import color
 from tpuimage_torch.ops.arith import add_weighted
 from tpuimage_torch.ops.edges import laplacian
@@ -124,22 +126,19 @@ def _mix(x: torch.Tensor, wx, y: torch.Tensor, wy, fuse_first: bool = False) -> 
 # categorisation (cell 19 section 2)
 # ---------------------------------------------------------------------------
 
-def _mean_f32(values: torch.Tensor, n: int) -> torch.Tensor:
-    """XLA's f32 mean of integer values: their exact sum, in f32, times
-    the f32 reciprocal of the count."""
-    total = values.sum(dim=(-2, -1), dtype=torch.int64).to(torch.float32)
-    return total * float(_F32(1.0) / _F32(n))
-
-
 def categorize_cues(rgb, device=None):
     """(v_mean, near_white_ratio, edge_ratio), each f32 of shape (...) for
     an (..., H, W, 3) RGB image: the mean HSV V, the share of V over 230
-    and the share of |Laplacian (ksize 1)| over 150 of the gray image."""
+    and the share of |Laplacian (ksize 1)| over 150 of the gray image.
+    Each is XLA's f32 mean: the sum as its tree reduce rounds it
+    (:func:`xla_sum_f32`, the three planes in one call) times the f32
+    reciprocal of the count."""
     x = as_input(rgb, device)
     v = color.rgb_to_hsv(x)[..., 2]
     n = int(v.shape[-2]) * int(v.shape[-1])
     lap = laplacian(color.rgb_to_gray(x))
-    return (_mean_f32(v, n), _mean_f32(v > 230, n), _mean_f32(torch.abs(lap) > 150, n))
+    planes = torch.stack([v, (v > 230).to(v.dtype), (torch.abs(lap) > 150).to(v.dtype)], dim=-3)
+    return (xla_sum_f32(planes) * float(_F32(1.0) / _F32(n))).unbind(-1)
 
 
 def check_night_mode(rgb, threshold: float = 80.0, device=None) -> bool:
@@ -203,6 +202,15 @@ def adaptive_clahe(rgb: torch.Tensor, clahe_clip: float = 3.0,
                    shadow_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CLAHE on Lab L, blended back toward the original L where the mask
     says shadow."""
+    return _adaptive_clahe(rgb, clahe_clip, tile_grid, shadow_mask)
+
+
+def _adaptive_clahe(rgb: torch.Tensor, clahe_clip: float, tile_grid: Tuple[int, int],
+                    shadow_mask: Optional[torch.Tensor],
+                    fuse_first: bool = False) -> torch.Tensor:
+    """:func:`adaptive_clahe` with the blend's fused product chosen: the
+    first, ``l_clahe * bright``, where the final blend alone reads the
+    stage (PORTRAIT), else the second."""
     lab = color.rgb_to_lab(rgb)
     lum = lab[..., 0]
     l_clahe = clahe(lum, clip_limit=clahe_clip, tiles_x=tile_grid[0], tiles_y=tile_grid[1])
@@ -210,7 +218,7 @@ def adaptive_clahe(rgb: torch.Tensor, clahe_clip: float = 3.0,
         l_out = l_clahe
     else:
         bright = torch.clamp(1.0 - shadow_mask, 0.0, 1.0)
-        l_out = trunc_u8(_mix(f32(l_clahe), bright, f32(lum), 1.0 - bright))
+        l_out = trunc_u8(_mix(f32(l_clahe), bright, f32(lum), 1.0 - bright, fuse_first))
     return color.lab_to_rgb(torch.cat([l_out[..., None], lab[..., 1:]], dim=-1))
 
 
@@ -278,7 +286,8 @@ def _enhance(rgb: torch.Tensor, preset: ShadowPreset):
         r = single_scale_retinex(img, sigma=cfg.retinex_sigma)
         img = add_weighted(r, cfg.retinex_blend, img, 1.0 - cfg.retinex_blend, 0.0)
     if cfg.use_clahe:
-        img = adaptive_clahe(img, cfg.clahe_clip, cfg.clahe_tile, mask)
+        img = _adaptive_clahe(img, cfg.clahe_clip, cfg.clahe_tile, mask,
+                              fuse_first=not (cfg.use_contrast_stretch or cfg.use_unsharp))
     blur_input = None
     if cfg.use_contrast_stretch:
         out = _stretch(img, cfg.stretch_percentiles)

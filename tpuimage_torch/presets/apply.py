@@ -13,8 +13,8 @@ the rest are plain tensor ops (tpuimage has no kernel for them).
 The arithmetic is that of tpuimage's jitted appliers: ``/ 255`` a
 product with the f32 reciprocal, a product feeding an add fused into it
 (the chroma excursion, the local-contrast add, the highlight curve's
-blend), ``pow`` by 2 or 3 as products, XLA's f32 means as exact sums
-times the f32 reciprocal. The enhancement applier's L blends are
+blend), ``pow`` by 2 or 3 as products, XLA's f32 means as the sums its
+tree reduce rounds times the f32 reciprocal. The enhancement applier's L blends are
 functions of two bytes and so tables built once with numpy in that
 arithmetic. ``pow`` and ``log1p`` are taken in f64 and rounded to f32
 (correctly rounded, the same on every device and thread count).
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from tpuimage_torch.core.device import as_input
-from tpuimage_torch.core.dtypes import f32, fma_f32, fma_np, pow_np, saturate_u8
+from tpuimage_torch.core.dtypes import f32, fma_f32, fma_np, pow_np, saturate_u8, xla_sum_f32
 from tpuimage_torch.ops import color
 from tpuimage_torch.ops.filters import gaussian_blur_f32
 from tpuimage_torch.ops.histogram import clahe, equalize_hist
@@ -44,11 +44,11 @@ def _apply_luminance(rgb: torch.Tensor, fn) -> torch.Tensor:
 
 
 def _channel_means(x: torch.Tensor) -> torch.Tensor:
-    """XLA's f32 mean over (H, W) of each channel of integer-valued
-    (..., H, W, C): the exact sum, in f32, times the f32 reciprocal."""
+    """XLA's f32 mean over (H, W) of each channel of byte-valued (..., H,
+    W, C): the sum as XLA's tree reduce rounds it (:func:`xla_sum_f32`;
+    past 2**24 it is not the exact sum) times the f32 reciprocal."""
     n = int(x.shape[-3]) * int(x.shape[-2])
-    total = x.to(torch.int64).sum(dim=(-3, -2)).to(torch.float32)
-    return total * float(_F32(1.0) / _F32(n))
+    return xla_sum_f32(x.movedim(-1, -3)) * float(_F32(1.0) / _F32(n))
 
 
 def _highlight_curve(l: torch.Tensor, mode: str) -> torch.Tensor:
@@ -109,7 +109,7 @@ def apply_categorization_preset(rgb, preset: CategorizationPreset, device=None) 
     # gray-world white balance with clamped gains
     if p.gray_world:
         means = _channel_means(x)
-        gain = means.sum(dim=-1, keepdim=True) * float(_F32(1.0) / _F32(3.0))
+        gain = ((means[..., :1] + means[..., 1:2]) + means[..., 2:]) * float(_F32(1.0) / _F32(3.0))
         gain = gain / torch.clamp(means, min=1e-6)
         gain = torch.clamp(gain, p.gain_clamp[0], p.gain_clamp[1])
         x = saturate_u8(f32(x) * gain[..., None, None, :])
@@ -157,13 +157,13 @@ def _table_on(sky_power: float, blend: float, device: str) -> torch.Tensor:
     return torch.from_numpy(luminance_blend_table(sky_power, blend)).reshape(-1).to(device)
 
 
-def apply_enhancement_preset(img, preset: EnhancementPreset, gray: bool = False,
+def apply_enhancement_preset(rgb, preset: EnhancementPreset, gray: bool = False,
                              device=None) -> torch.Tensor:
     """contrast stretch (alpha) -> histogram modification (equalisation
     or CLAHE) on Lab L, or on the plane itself with ``gray``, with the
     optional sky-protection blend -> optional invert."""
     p = preset
-    x = as_input(img, device)
+    x = as_input(rgb, device)
     if p.contrast_alpha != 1.0:
         x = saturate_u8(f32(x) * p.contrast_alpha)
     if p.hist_method in ("equalization", "clahe"):
