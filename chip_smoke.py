@@ -206,7 +206,17 @@ Phases (any failure raises and the exit code is non-zero):
    8 deskew maps and ``hough_lines(return_overflow=True)`` at a budget
    that overflows and one that does not (rank_extract and hough_votes
    counted, the flags equal the host's); ``warp_perspective_batch`` with
-   a 127.5 border and a replicate one; ``otsu_threshold`` (counted).
+   a 127.5 border and a replicate one; ``otsu_threshold`` (counted);
+17. the CLAHE apply in cv2's order and the batch warp in tpuimage's
+   jitted form, on the repository's whole images: the ``clahe_apply``
+   kernel equal to its plain version and to a numpy transcription of
+   cv2's blend (``_clahe_cv2_order``) on the L of
+   ``outputs/scan_02_quad.png`` and the gray of ``scan_03_warped.png`` at
+   8x8 tiles (clip 2, 3, 40) and on eye regions of a portrait at 4x4
+   (clip 0.2), each CLAHE card = host (counted: one launch a call);
+   ``warp_perspective_batch`` of the photo through DocScanner's own quad
+   (to its 1600-high page) and a skewed map, at the borders constant 0,
+   replicate and constant 127.5, card = host.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel JSON record (all twelve kernels, each launched on
@@ -561,7 +571,7 @@ def _face_clahe_kernels(what: str, planes, clip: float, grid: int, key: str,
     args = []
     for p, (t, th, tw) in zip(planes, tiles):
         luts = histogram.tile_luts_from_counts(kernels.hist256_batch(t), clip, th * tw)
-        r, c = histogram.blend_matrices_on(p.shape[1], p.shape[2], th, tw, grid, grid,
+        r, c = histogram.blend_tables_on(p.shape[1], p.shape[2], th, tw, grid, grid,
                                            p.device)
         args.append((p, luts.reshape(1, grid, grid, 256), r, c))
     n = sum(a[0].numel() for a in args)
@@ -868,7 +878,7 @@ def _notebook_phase(dev, tables, records: dict, launches: dict, cudnn_tf32: bool
     _sub_record(records["hist256"], "notebook_equalize", rec)
     del offset_tiles, offset_rows
     counts = kernels.hist256_batch(tiles)
-    R, C = histogram.blend_matrices_on(NIGHT[0], NIGHT[1], th, tw, 8, 8, dev)
+    R, C = histogram.blend_tables_on(NIGHT[0], NIGHT[1], th, tw, 8, 8, dev)
     for clip in (2, 3, 4):
         luts = histogram.tile_luts_from_counts(counts, clip, th * tw).reshape(-1, 8, 8, 256)
         rec = _compare(f"clahe_apply notebook clip {clip} ({N_REQUESTS} L planes "
@@ -1755,6 +1765,110 @@ def _closure_phase(dev, launches: dict) -> None:
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
 
+def _clahe_cv2_order(gray: np.ndarray, luts: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """cv2's CLAHE blend (CLAHE_Interpolation_Body) transcribed in numpy
+    f32, each op rounded on its own: one (H, W) uint8 plane and its (ty,
+    tx, 256) tile LUTs -> the (H, W) uint8 output."""
+    f = np.float32
+    ty, tx = luts.shape[:2]
+
+    def axis(n: int, tile: int, n_tiles: int):
+        pf = np.arange(n, dtype=f) * (f(1.0) / f(tile)) - f(0.5)
+        t1 = np.floor(pf).astype(np.int64)
+        a = (pf - t1).astype(f)
+        return np.maximum(t1, 0), np.minimum(t1 + 1, n_tiles - 1), f(1.0) - a, a
+
+    y1, y2, ya1, ya = axis(gray.shape[0], th, ty)
+    x1, x2, xa1, xa = axis(gray.shape[1], tw, tx)
+    lut = luts.astype(f)
+    g = gray.astype(np.int64)
+
+    def at(ys, xs):
+        return lut[ys[:, None], xs[None, :], g]
+
+    res = ((at(y1, x1) * xa1 + at(y1, x2) * xa) * ya1[:, None]
+           + (at(y2, x1) * xa1 + at(y2, x2) * xa) * ya[:, None])
+    return np.clip(np.rint(res), 0, 255).astype(np.uint8)
+
+
+def _exact_forms_phase(dev, launches: dict) -> None:
+    """Phase 17: the CLAHE apply in cv2's order and the batch warp in
+    tpuimage's jitted form on the repository's whole images (the module
+    docstring, item 17)."""
+    from tpuimage_torch import synth
+    from tpuimage_torch.io import imageio
+    from tpuimage_torch.ops import color, geometry, histogram, kernels
+    from tpuimage_torch.pipelines import docscan
+    t0 = time.perf_counter()
+    photo = imageio.load_image_rgb(os.path.join(HERE, "outputs", "scan_02_quad.png"))
+    page = imageio.load_image_rgb(os.path.join(HERE, "outputs", "scan_03_warped.png"))
+    lum = color.rgb_to_lab(torch.from_numpy(photo).to(dev))[..., 0]
+    planes = [("the photo's L", lum[None].contiguous(), 8, (2.0, 3.0, 40.0)),
+              ("the A4 page's gray", color.rgb_to_gray(torch.from_numpy(page).to(dev))[None],
+               8, (2.0, 3.0, 40.0))]
+    img, eyes = synth.portrait(17)
+    lab = color.rgb_to_lab(torch.from_numpy(img).to(dev))
+    for x0, y0, w, h in eyes:
+        planes.append((f"an eye region {w}x{h}", lab[None, y0:y0 + h, x0:x0 + w, 0].contiguous(),
+                       4, (0.2,)))
+    for h, w in synth.EYE_EDGE_SHAPES[:3]:
+        planes.append((f"an eye region {w}x{h}", lab[None, 400:400 + h, 300:300 + w, 0]
+                       .contiguous(), 4, (0.2,)))
+    kernels.reset_launch_counts()
+    n_direct = n_clahe = 0
+    for what, p, grid, clips in planes:
+        tiles, th, tw = histogram.clahe_tiles(p, grid, grid)
+        counts = kernels.hist256_batch(tiles)
+        rows, cols = histogram.blend_tables_on(p.shape[1], p.shape[2], th, tw, grid, grid, dev)
+        for clip in clips:
+            luts = histogram.tile_luts_from_counts(counts, clip, th * tw)
+            luts = luts.reshape(1, grid, grid, 256)
+            card = kernels.clahe_apply(p, luts, rows, cols)
+            n_direct += 1
+            plain = kernels.clahe_apply_ref(p, luts, rows, cols)
+            cv2_order = _clahe_cv2_order(p[0].cpu().numpy(), luts[0].cpu().numpy(), th, tw)
+            if not torch.equal(card, plain):
+                raise AssertionError(f"clahe_apply on {what} clip {clip}: kernel and plain "
+                                     f"version differ on {int((card != plain).sum())} pixels")
+            apart = int((card[0].cpu().numpy() != cv2_order).sum())
+            if apart:
+                raise AssertionError(f"clahe_apply on {what} clip {clip}: {apart} pixels "
+                                     f"differ from cv2's order")
+            _card_equals_host(f"CLAHE clip {clip} at {grid}x{grid} on {what}",
+                              histogram.clahe(p, clip, grid, grid),
+                              histogram.clahe(p.cpu(), clip, grid, grid))
+            n_clahe += 1
+        print(f"clahe_apply on {what} ({tuple(p.shape[1:])}, {grid}x{grid} tiles, clip "
+              f"{list(clips)}): kernel = plain version = cv2's order in numpy")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts["clahe_apply"] != n_direct + n_clahe:
+        raise AssertionError(f"clahe_apply launched {counts['clahe_apply']} times for "
+                             f"{n_direct} kernel calls and {n_clahe} CLAHE calls")
+    # the launches of the CLAHE calls, not those held against the plain version
+    launches["clahe_apply"] += n_clahe
+
+    h, w = photo.shape[:2]
+    (quad,) = docscan.localize_batch(photo[None], docscan.DocScanConfig(), device=dev)
+    th, tw = docscan._warp_target_size(quad, "A4", 1600)
+    src = np.float32([[0, 0], [w, 0], [w, h], [0, h]])
+    skew = src + np.float32([[-0.1, 0.15], [0.2, -0.1], [0.1, 0.2], [-0.15, -0.05]]) * [w, h]
+    maps = ((docscan._inverse_homography(quad, th, tw), th, tw, "DocScanner's quad"),
+            (np.linalg.inv(geometry.get_perspective_transform(src, skew)), 700, 500,
+             "a skewed map"))
+    photo_d = torch.from_numpy(photo).to(dev)[None]
+    for minv, oh, ow, what in maps:
+        m = torch.from_numpy(minv.astype(np.float32))[None]
+        for border, value in (("constant", 0.0), ("replicate", 0.0), ("constant", 127.5)):
+            _card_equals_host(f"warp_perspective_batch(border={border!r}, border_value={value}) "
+                              f"of the photo through {what} to {oh}x{ow}",
+                              geometry.warp_perspective_batch(photo_d, m.to(dev), oh, ow,
+                                                              border, value),
+                              geometry.warp_perspective_batch(photo_d.cpu(), m, oh, ow,
+                                                              border, value))
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2332,7 +2446,7 @@ def main() -> int:
     luts = histogram.tile_luts_from_counts(kernels.hist256_batch(tiles), night.CLIP_LIMIT,
                                            th * tw)
     luts = luts.reshape(N_REQUESTS, night.TILES, night.TILES, 256)
-    R, C = histogram.blend_matrices_on(*NIGHT, th, tw, night.TILES, night.TILES, dev)
+    R, C = histogram.blend_tables_on(*NIGHT, th, tw, night.TILES, night.TILES, dev)
     # per pixel: 6 multiplies and 3 adds
     records["clahe_apply"] = _compare(
         f"clahe_apply ({N_REQUESTS} L planes {NIGHT[1]}x{NIGHT[0]}, 8x8 tile LUTs)",
@@ -2959,6 +3073,10 @@ def main() -> int:
     # --- 16. the repaired forms and the last public names, card = host -------
     print(f"[phase 16 at {time.perf_counter() - t_start:.1f} s]")
     _closure_phase(dev, launches)
+
+    # --- 17. the CLAHE apply in cv2's order, the batch warp's jitted form -----
+    print(f"[phase 17 at {time.perf_counter() - t_start:.1f} s]")
+    _exact_forms_phase(dev, launches)
     print(f"[phases done at {time.perf_counter() - t_start:.1f} s]")
 
     torch.cuda.synchronize()

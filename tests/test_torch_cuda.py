@@ -198,7 +198,7 @@ def test_clahe_apply_kernel_at_edge_shapes(cuda_device, grid, shape):
     _, _, th, tw = histogram.clahe_geometry(h, w, tx, ty)
     rng = np.random.default_rng(h * 1000 + w + ty)
     luts = torch.from_numpy(rng.integers(0, 256, (b, ty, tx, 256), dtype=np.uint8))
-    R, C = histogram.blend_matrices_on(h, w, th, tw, ty, tx, torch.device("cpu"))
+    R, C = histogram.blend_tables_on(h, w, th, tw, ty, tx, torch.device("cpu"))
     for off in (0, 1, 2, 3):
         gray = _at_offset(shape, off, off + w, cuda_device)
         out = _count("clahe_apply", lambda: kernels.clahe_apply(
@@ -211,17 +211,44 @@ def test_clahe_apply_kernel_at_edge_shapes(cuda_device, grid, shape):
 @pytest.mark.parametrize("scale", [1.7, 0.3])
 @pytest.mark.parametrize("shape,grid", [((2, 853, 1280), (8, 8)), ((1, 37, 131), (3, 5))])
 def test_clahe_apply_kernel_with_weights_off_the_unit_range(cuda_device, shape, grid, scale):
-    """Blend matrices scaled past 1 or below 0 (R by ``scale``, C by
-    ``scale - 0.5``): blends outside [0, 255], where the kernel clamps as
-    the plain version does (it skips the clamp only for weights that keep
-    every blend inside)."""
+    """Blend tables whose fractions are scaled past 1 or below 0 (the
+    rows' by ``scale``, the columns' by ``scale - 0.5``): blends outside
+    [0, 255], where the kernel clamps as the plain version does (it skips
+    the clamp only for fractions in [0, 1], which keep every blend
+    inside)."""
     b, h, w = shape
     ty, tx = grid
     _, _, th, tw = histogram.clahe_geometry(h, w, tx, ty)
     rng = np.random.default_rng(w + ty)
     luts = torch.from_numpy(rng.integers(0, 256, (b, ty, tx, 256), dtype=np.uint8))
-    R, C = histogram.blend_matrices_on(h, w, th, tw, ty, tx, torch.device("cpu"))
-    R, C = R * scale, C * (scale - 0.5)
+    R, C = (t.clone() for t in histogram.blend_tables_on(h, w, th, tw, ty, tx,
+                                                           torch.device("cpu")))
+    R[:, 2] *= scale
+    C[:, 2] *= scale - 0.5
+    gray = _at_offset(shape, 0, w, cuda_device)
+    out = _count("clahe_apply", lambda: kernels.clahe_apply(
+        gray, luts.to(cuda_device), R.to(cuda_device), C.to(cuda_device)))
+    ref = kernels.clahe_apply_ref(gray.cpu(), luts, R, C)
+    assert torch.equal(out.cpu(), ref), int((out.cpu() != ref).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,grid", [((2, 853, 1280), (8, 8)), ((1, 37, 131), (3, 5))])
+def test_clahe_apply_kernel_with_tables_of_other_pairs(cuda_device, shape, grid):
+    """Blend tables whose tile pairs are not cv2's (any two tiles, the
+    same or far apart, a few rows and columns each) and a table of
+    cv2's form: the blocks that meet another pair read the LUTs in device
+    memory, the others stage their quads; both equal the plain version."""
+    b, h, w = shape
+    ty, tx = grid
+    _, _, th, tw = histogram.clahe_geometry(h, w, tx, ty)
+    rng = np.random.default_rng(h + tx)
+    luts = torch.from_numpy(rng.integers(0, 256, (b, ty, tx, 256), dtype=np.uint8))
+    R, C = (t.clone() for t in histogram.blend_tables_on(h, w, th, tw, ty, tx,
+                                                           torch.device("cpu")))
+    for tab, n, size in ((R, ty, h), (C, tx, w)):
+        pick = torch.from_numpy(rng.choice(size, max(size // 50, 1), replace=False))
+        tab[pick, :2] = torch.from_numpy(rng.integers(0, n, (len(pick), 2)).astype(np.float32))
     gray = _at_offset(shape, 0, w, cuda_device)
     out = _count("clahe_apply", lambda: kernels.clahe_apply(
         gray, luts.to(cuda_device), R.to(cuda_device), C.to(cuda_device)))
@@ -1014,7 +1041,7 @@ def test_lab_hist_clahe_kernels_on_eye_regions(cuda_device):
         hist = _count("hist256", lambda: kernels.hist256_batch(tiles))
         assert torch.equal(hist.cpu(), kernels.hist256_batch_ref(tiles.cpu()))
         luts = histogram.tile_luts_from_counts(hist, 0.2, th * tw).reshape(1, 4, 4, 256)
-        R, C = histogram.blend_matrices_on(h, w, th, tw, 4, 4, cuda_device)
+        R, C = histogram.blend_tables_on(h, w, th, tw, 4, 4, cuda_device)
         out = _count("clahe_apply", lambda: kernels.clahe_apply(lum, luts, R, C))
         assert torch.equal(out.cpu(), kernels.clahe_apply_ref(lum.cpu(), luts.cpu(), R.cpu(),
                                                               C.cpu()))
@@ -1047,7 +1074,7 @@ def test_face_kernels_on_a_full_size_portrait(cuda_device):
     hist = _count("hist256", lambda: kernels.hist256_batch(tiles))
     assert torch.equal(hist, kernels.hist256_batch_ref(tiles))
     luts = histogram.tile_luts_from_counts(hist, 0.5, th * tw).reshape(1, 8, 8, 256)
-    R, C = histogram.blend_matrices_on(1280, 853, th, tw, 8, 8, cuda_device)
+    R, C = histogram.blend_tables_on(1280, 853, th, tw, 8, 8, cuda_device)
     out = _count("clahe_apply", lambda: kernels.clahe_apply(lum, luts, R, C))
     assert torch.equal(out, kernels.clahe_apply_ref(lum, luts, R, C))
 
@@ -1233,7 +1260,7 @@ def test_notebook_kernels_at_their_shapes(cuda_device, shadow_scenes):
     assert torch.equal(counts.cpu(), kernels.hist256_batch_ref(tiles.cpu()))
     rows = lum.reshape(2, -1)
     assert torch.equal(kernels.hist256_batch(rows).cpu(), kernels.hist256_batch_ref(rows.cpu()))
-    R, C = histogram.blend_matrices_on(853, 1280, th, tw, 8, 8, cuda_device)
+    R, C = histogram.blend_tables_on(853, 1280, th, tw, 8, 8, cuda_device)
     for clip in (2, 3, 4):
         luts = histogram.tile_luts_from_counts(counts, clip, th * tw).reshape(-1, 8, 8, 256)
         assert torch.equal(kernels.clahe_apply(lum, luts, R, C).cpu(),

@@ -106,7 +106,7 @@ def test_wrappers_check_inputs_and_count_only_launches():
     gray, eroded = kernels.gray_erode3(rgb)
     kernels.binary_close3(eroded, torch.zeros(1))
     kernels.clahe_apply(gray, torch.zeros((1, 2, 2, 256), dtype=torch.uint8),
-                        torch.zeros((8, 2)), torch.zeros((2, 12)))
+                        torch.zeros((8, 3)), torch.zeros((12, 3)))
     planes = torch.zeros((2, 9, 11), dtype=torch.uint8)
     kernels.gaussian_blur_u8(planes, 5)
     for mode in kernels.GAUSS_CHAIN_MODES:
@@ -189,7 +189,7 @@ def test_wrappers_check_inputs_and_count_only_launches():
         kernels.binary_close3(eroded, torch.zeros(1, dtype=torch.float64))
     with pytest.raises(ValueError):
         kernels.clahe_apply(gray, torch.zeros((1, 2, 2, 256), dtype=torch.uint8),
-                            torch.zeros((8, 3)), torch.zeros((2, 12)))
+                            torch.zeros((8, 2)), torch.zeros((12, 3)))
     # the post-warp chain's wrappers: dtype, rank, contiguity, sizes, modes
     with pytest.raises(TypeError):
         kernels.gaussian_blur_u8(planes.to(torch.int32), 5)
@@ -262,7 +262,7 @@ def test_clahe_apply_ref_matches_pallas(rng, shape):
     R = jhist.clahe_blend_matrix(h, th, 8)
     C = np.ascontiguousarray(jhist.clahe_blend_matrix(w, tw, 8).T)
     ours = kernels.clahe_apply_ref(torch.from_numpy(gray[None]), torch.from_numpy(luts[None]),
-                                   torch.from_numpy(R), torch.from_numpy(C))[0].numpy()
+                                   *_tables(h, w, th, tw, 8, 8))[0].numpy()
     ref = np.asarray(clahe_apply_pallas(jnp.asarray(gray), jnp.asarray(luts, jnp.float32),
                                         jnp.asarray(R), jnp.asarray(C), th=th, tw=tw,
                                         interpret=True))
@@ -284,7 +284,7 @@ def test_clahe_apply_ref_matches_pallas_on_other_grids(rng, shape, tiles):
     R = jhist.clahe_blend_matrix(h, th, ty)
     C = np.ascontiguousarray(jhist.clahe_blend_matrix(w, tw, tx).T)
     ours = kernels.clahe_apply_ref(torch.from_numpy(gray[None]), torch.from_numpy(luts[None]),
-                                   torch.from_numpy(R), torch.from_numpy(C))[0].numpy()
+                                   *_tables(h, w, th, tw, ty, tx))[0].numpy()
     ref = np.asarray(clahe_apply_pallas(jnp.asarray(gray), jnp.asarray(luts, jnp.float32),
                                         jnp.asarray(R), jnp.asarray(C), th=th, tw=tw,
                                         interpret=True))
@@ -292,19 +292,29 @@ def test_clahe_apply_ref_matches_pallas_on_other_grids(rng, shape, tiles):
     assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, ((diff > 0).sum(), diff.size)
 
 
-def test_blend_pairs_use_the_matrix_weights():
-    """At the borders both taps are one tile: the pair carries that
-    column's summed weight and a second weight of 0."""
-    m = torch.from_numpy(jhist.clahe_blend_matrix(100, 13, 8))
-    t1, t2, w1, w2 = kernels._blend_pairs(m)
-    rows = torch.arange(100)
-    assert torch.equal(m[rows, t1], w1)
-    assert (w2[t1 == t2] == 0).all() and (t1 == t2).any()
-    assert (t1[:6] == 0).all() and (t2[-6:] == 7).all()
-    rebuilt = torch.zeros_like(m)
-    rebuilt[rows, t1] += w1
-    rebuilt[rows, t2] += w2
-    assert torch.equal(rebuilt, m)
+def _tables(h, w, th, tw, ty, tx):
+    return (torch.from_numpy(histogram.clahe_blend_table(h, th, ty)),
+            torch.from_numpy(histogram.clahe_blend_table(w, tw, tx)))
+
+
+def test_blend_table_keeps_both_edge_weights():
+    """The blend table against tpuimage's blend matrix: inside, the two
+    tiles' entries are 1 - a and a; at the borders both tiles are one and
+    the table keeps both weights, whose f32 sum is the matrix's one entry."""
+    m = jhist.clahe_blend_matrix(100, 13, 8)
+    tab = histogram.clahe_blend_table(100, 13, 8)
+    t1, t2, a = tab[:, 0].astype(int), tab[:, 1].astype(int), tab[:, 2]
+    rows = np.arange(100)
+    one = np.float32(1)
+    assert (t1[:6] == 0).all() and (t2[:6] == 0).all() and (t2[-6:] == 7).all()
+    inside, edge = t1 != t2, t1 == t2
+    # rows 0-6 (p / 13 - 0.5 < 0) and 98-99 (>= 7) are at the borders
+    assert (t2[inside] == t1[inside] + 1).all() and np.nonzero(edge)[0].tolist() == \
+        list(range(7)) + [98, 99]
+    np.testing.assert_array_equal(m[rows[inside], t1[inside]], one - a[inside])
+    np.testing.assert_array_equal(m[rows[inside], t2[inside]], a[inside])
+    np.testing.assert_array_equal(m[rows[edge], t1[edge]], (one - a[edge]) + a[edge])
+    assert ((m != 0).sum(axis=1) == np.where(inside, 2, 1)).all()
 
 
 @pytest.mark.parametrize("shape", [(97, 131), (33, 257), (5, 963)])

@@ -73,6 +73,14 @@ def test_night_tables_match_tpuimage(shape, tiles):
     assert tab["clahe_tile"] == (th, tw)
     np.testing.assert_array_equal(tab["clahe_R"], jhist.clahe_blend_matrix(h, th, ty))
     np.testing.assert_array_equal(tab["clahe_C"], jhist.clahe_blend_matrix(w, tw, tx).T)
+    # the port's blend tables hold the same weights, both kept at the edges
+    for table, n, m in ((tab["clahe_rows"], ty, tab["clahe_R"]),
+                        (tab["clahe_cols"], tx, tab["clahe_C"].T)):
+        rebuilt = np.zeros((len(table), n), np.float32)
+        rows = np.arange(len(table))
+        rebuilt[rows, table[:, 0].astype(int)] += np.float32(1) - table[:, 2]
+        rebuilt[rows, table[:, 1].astype(int)] += table[:, 2]
+        np.testing.assert_array_equal(rebuilt, m)
 
 
 def test_night_tile_shape_at_nightview_size():
@@ -241,8 +249,9 @@ def test_clahe_within_contract_on_a_5x3_grid(shape):
 
 
 def test_clahe_apply_ref_matches_pallas_with_the_same_luts():
-    """The apply step alone, fed tpuimage's own LUTs and blend matrices:
-    max |diff| <= 1 on < 0.1% of pixels against clahe_apply_pallas."""
+    """The apply step alone, fed tpuimage's own LUTs (and the Pallas
+    kernel its blend matrices, the port its blend tables): max |diff| <= 1
+    on < 0.1% of pixels against clahe_apply_pallas."""
     x = synth.night_scene(6, 213, 301)[..., 0].copy()
     h, w = x.shape
     tiles, area = _tiles(x)
@@ -250,7 +259,9 @@ def test_clahe_apply_ref_matches_pallas_with_the_same_luts():
     _, _, th, tw = histogram.clahe_geometry(h, w, 8, 8)
     R = jhist.clahe_blend_matrix(h, th, 8)
     C = np.ascontiguousarray(jhist.clahe_blend_matrix(w, tw, 8).T)
-    ours = kernels.clahe_apply(_t(x[None]), _t(luts.reshape(1, 8, 8, 256)), _t(R), _t(C))[0]
+    ours = kernels.clahe_apply(_t(x[None]), _t(luts.reshape(1, 8, 8, 256)),
+                               _t(histogram.clahe_blend_table(h, th, 8)),
+                               _t(histogram.clahe_blend_table(w, tw, 8)))[0]
     ref = np.asarray(clahe_apply_pallas(jnp.asarray(x), jnp.asarray(luts, jnp.float32)
                                         .reshape(8, 8, 256), jnp.asarray(R), jnp.asarray(C),
                                         th=th, tw=tw, interpret=True))

@@ -44,6 +44,8 @@ from tpuimage_torch import convert, synth
 from tpuimage_torch.io import imageio
 from tpuimage_torch.presets import apply, loader
 
+from cv2_clahe import program_copy as _program_copy
+
 torch.set_num_threads(1)
 
 PATH_TOL = (4, 0.015, 0.005)
@@ -140,8 +142,14 @@ def test_categorization_every_stage_and_batch():
     xs = np.stack([synth.shadowed_scene(0, 72, 96), synth.shadowed_scene(5, 72, 96)])
     ours = apply.apply_categorization_preset(xs, p, device="cpu")
     for i in range(2):
-        _assert_within(ours[i], japply.apply_categorization_preset(jnp.asarray(xs[i]), jp),
-                       *PATH_TOL)
+        # against tpuimage's program with cv2's CLAHE stage (the port's
+        # CLAHE is cv2's; tpuimage's ties took the whole past PATH_TOL's 4)
+        x = jnp.asarray(xs[i])
+        np.testing.assert_array_equal(
+            _program_copy([japply], japply.apply_categorization_preset, x, cv2_stage=False,
+                          preset=jp),
+            np.asarray(japply.apply_categorization_preset(x, jp)))
+        _exact(ours[i], _program_copy([japply], japply.apply_categorization_preset, x, preset=jp))
     # the gray-world gains are each image's own
     jg = jloader.CategorizationPreset(name="gw", group="g", gray_world=True)
     ours = apply.apply_categorization_preset(xs, _across(jg), device="cpu")

@@ -5,9 +5,10 @@ CPU) on seeded synthetic photos of 480x360 at scale_long 400.
 
 Tolerances: the bilateral preprocess within the float contract (max
 |diff| <= 1 on < 0.5% of pixels); ``use_whole`` and the deskew angle
-equal; quad corners within 0.5 px; the warped page within the float
-bilinear contract; binary pages < 0.2% different (the bound tpuimage holds
-its own warp forms to). The port's own forms (stream, chunks) equal
+equal; quad corners within 0.5 px; the warped pages equal (the one-photo
+warp op by op, scan_batch's batch warp as tpuimage's jitted program
+rounds it); binary pages < 0.2% different (the bound tpuimage holds its
+own warp forms to). The port's own forms (stream, chunks) equal
 scan_batch exactly.
 """
 import dataclasses
@@ -150,7 +151,34 @@ def test_localize_and_perspective_warp(photos):
     warped = tdoc.perspective_warp(photos[1], quads[1], CFG.page, CFG.scale_long, device="cpu")
     ref_warped = jdoc.perspective_warp(photos[1], ref[1], JCFG.page, JCFG.scale_long)
     assert warped.shape == (400, 283, 3)
-    _assert_float_contract(warped.numpy(), np.asarray(ref_warped))
+    np.testing.assert_array_equal(warped.numpy(), np.asarray(ref_warped))
+
+
+def test_scan_batch_warped_pages_equal_tpuimage(photos):
+    """scan_batch's warped pages on the CPU equal tpuimage's, through each
+    package's load / localize and quad-fit phases on DocScanner's own
+    quads: the synthetic photos at scale_long 400 (pages 283 wide, a row
+    XLA unrolls whole) and the whole outputs/scan_02_quad.png, also
+    mirrored, at the default 1600 (1131 wide: XLA's vectorised loop and
+    its tail); the use-whole photo has no warped page."""
+    photo = tio.load_image_rgb(os.path.join(os.path.dirname(__file__), os.pardir, "outputs",
+                                            "scan_02_quad.png"))
+    for inputs, cfg, jcfg in ((photos, CFG, JCFG),
+                              ([photo, np.ascontiguousarray(photo[:, ::-1])],
+                               tdoc.DocScanConfig(), jdoc.DocScanConfig())):
+        state = tdoc._scan_load_localize(inputs, cfg, torch.device("cpu"))
+        tdoc._scan_quad_fit(state, cfg, False)
+        ref = jdoc._scan_load_localize(inputs, jcfg)
+        jdoc._scan_quad_fit(ref, jcfg, False)
+        warped = 0
+        for i, meta in enumerate(ref["metas"]):
+            np.testing.assert_array_equal(state["metas"][i]["quad"], meta["quad"])
+            assert state["metas"][i]["use_whole"] == meta["use_whole"]
+            if not meta["use_whole"]:
+                np.testing.assert_array_equal(state["pages"][i].numpy(),
+                                              np.asarray(ref["pages"][i]))
+                warped += 1
+        assert warped >= 2, warped
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ No pipeline has learned weights. DocScanner's state is its config plus
 static tables (the Q8 Gaussian taps, the f32 adaptive-threshold taps and
 its integer offset, the Hough cos/sin tables, the structuring elements
 and the preprocess's bilateral taps and weights); the night paths' is
-the Lab tables and CLAHE's blend matrices. The tables are built from
+the Lab tables and CLAHE's blend matrices and tables. The tables are built from
 numpy exactly as tpuimage builds them. The CLIP classifier's weights come
 across from tpuimage's Flax parameters (``clip_params_from_tpuimage``),
 and its presets (the shadow pipeline's and the two databases') as plain
@@ -20,7 +20,7 @@ import numpy as np
 from tpuimage_torch.ops.bilateral import tap_tables
 from tpuimage_torch.ops.color import lab_tables
 from tpuimage_torch.ops.filters import gaussian_kernel_q8, get_gaussian_kernel
-from tpuimage_torch.ops.histogram import clahe_blend_matrix, clahe_geometry
+from tpuimage_torch.ops.histogram import clahe_blend_matrix, clahe_blend_table, clahe_geometry
 from tpuimage_torch.ops.hough import hough_tables
 from tpuimage_torch.ops.kernels import color_weight_table
 from tpuimage_torch.pipelines.docscan import (INK_DILATE_SE, DocScanConfig,
@@ -90,8 +90,9 @@ def bilateral_tables(d: int, sigma_color: float, sigma_space: float,
 def night_tables(shape=(853, 1280), tiles=(8, 8)) -> dict:
     """The static tables of the night paths on an (H, W) image with
     ``tiles`` = (tiles_x, tiles_y): the Lab gamma and cube-root tables and
-    fixed-point coefficients, and CLAHE's tile size and blend matrices
-    R (H, ty) and C (tx, W)."""
+    fixed-point coefficients, and CLAHE's tile size, tpuimage's blend
+    matrices R (H, ty) and C (tx, W), and the port's blend tables (H, 3)
+    and (W, 3), which the ``clahe_apply`` kernel takes in their place."""
     h, w = shape
     tiles_x, tiles_y = tiles
     gamma, cbrt, coeffs = lab_tables()
@@ -103,6 +104,8 @@ def night_tables(shape=(853, 1280), tiles=(8, 8)) -> dict:
         "clahe_tile": (th, tw),
         "clahe_R": clahe_blend_matrix(h, th, tiles_y),
         "clahe_C": clahe_blend_matrix(w, tw, tiles_x).T,
+        "clahe_rows": clahe_blend_table(h, th, tiles_y),
+        "clahe_cols": clahe_blend_table(w, tw, tiles_x),
     }
 
 

@@ -3,11 +3,12 @@ rotation and translation, and the deskew rotation (counterpart of
 ``tpuimage.ops.geometry``).
 
 Warp and rotation are inverse-map bilinear gathers with a final cvRound,
-as this OpenCV build computes them in plain f32. The parity contract
-against tpuimage is the README's float contract: max |diff| <= 1 on < 0.5%
-of pixels, where a rounding-order difference lands a 4-tap sum on the
-other side of an x.5 boundary. tpuimage's one-hot matmul tiles are TPU
-devices; the port samples the same coordinates with a gather.
+as this OpenCV build computes them in plain f32. Each rounds its products
+and sums as the tpuimage program its callers run: the warps op by op,
+``warp_perspective_batch`` and ``rotate_pages`` as XLA's CPU compiler
+fuses them in tpuimage's jitted programs, so that they equal tpuimage's
+on every pixel. tpuimage's one-hot matmul tiles are TPU devices; the port
+samples the same coordinates with a gather.
 """
 from __future__ import annotations
 
@@ -216,14 +217,23 @@ def get_rotation_matrix_2d(center, angle_deg: float, scale: float = 1.0) -> np.n
 
 def _bilinear_gather_u8(img: torch.Tensor, map_x: torch.Tensor,
                         map_y: torch.Tensor, border: str,
-                        border_value: float = 0.0,
-                        rows_first: bool = False) -> torch.Tensor:
+                        border_value: float = 0.0, form: str = "op") -> torch.Tensor:
     """Sample each image of a (B, H, W[, C]) uint8 batch at float coords
     (B, oh, ow) with cv2 INTER_LINEAR semantics; ``border`` is
-    ``constant`` (``border_value``) or ``replicate``. The sum is the four
-    taps times their weight products, or with ``rows_first`` the two rows'
-    y-blends blended in x (``rotate_traced_tiled``'s one-hot contractions
-    in tpuimage's jitted program: each product rounded, none fused)."""
+    ``constant`` (``border_value``) or ``replicate``. ``form`` is how the
+    caller's tpuimage program rounds the blend:
+
+    - ``"op"``: the four taps times their weight products, each product
+      and sum rounded on its own (tpuimage's warps run op by op);
+    - ``"fused"``: the sum as ``warp_perspective_batch``'s jitted program
+      computes it, read from its fusion's optimized LLVM IR: the first
+      product fused into the add of the second (the second into that add
+      on the last of two or more channels, whose first product the
+      compiler leaves in a block of its own) and each later product into
+      its add;
+    - ``"rows_first"``: the two rows' y-blends blended in x, each product
+      rounded, none fused (``rotate_traced_tiled``'s one-hot contractions
+      in tpuimage's jitted program)."""
     b, h, w = img.shape[0], img.shape[1], img.shape[2]
     chan = img.dim() == 4
     x0 = torch.floor(map_x)
@@ -250,14 +260,24 @@ def _bilinear_gather_u8(img: torch.Tensor, map_x: torch.Tensor,
         ww = wy * wx
         return ww[..., None] if chan else ww
 
-    if rows_first:
+    if form == "rows_first":
         r0 = tap(y0i, x0i) * (1.0 - fy) + tap(y0i + 1, x0i) * fy
         r1 = tap(y0i, x0i + 1) * (1.0 - fy) + tap(y0i + 1, x0i + 1) * fy
         return saturate_u8(r0 * (1.0 - fx) + r1 * fx)
-    acc = (tap(y0i, x0i) * wmul(1.0 - fy, 1.0 - fx)
-           + tap(y0i, x0i + 1) * wmul(1.0 - fy, fx)
-           + tap(y0i + 1, x0i) * wmul(fy, 1.0 - fx)
-           + tap(y0i + 1, x0i + 1) * wmul(fy, fx))
+    taps = ((tap(y0i, x0i), wmul(1.0 - fy, 1.0 - fx)), (tap(y0i, x0i + 1), wmul(1.0 - fy, fx)),
+            (tap(y0i + 1, x0i), wmul(fy, 1.0 - fx)), (tap(y0i + 1, x0i + 1), wmul(fy, fx)))
+    if form == "fused":
+        (v0, w0), (v1, w1) = taps[:2]
+        acc = fma_f32(v0, w0, v1 * w1)
+        if chan and img.shape[3] >= 2:
+            acc = torch.cat([acc[..., :-1], fma_f32(v1[..., -1:], w1, v0[..., -1:] * w0)],
+                            dim=-1)
+        for v, wt in taps[2:]:
+            acc = fma_f32(v, wt, acc)
+        return saturate_u8(acc)
+    acc = taps[0][0] * taps[0][1]
+    for v, wt in taps[1:]:
+        acc = acc + v * wt
     return saturate_u8(acc)
 
 
@@ -322,20 +342,48 @@ def translate(img: torch.Tensor, tx: float, ty: float,
     return warp_affine(img, M, h, w, border=border)
 
 
+# XLA's CPU compiler vectorises a row of the coordinate lines 32 columns a
+# step (8 f32 lanes, 4 interleaved). Where that stays a loop (a row of at
+# least 10 steps), each ``a * x`` product sits in the loop beside the add
+# that takes it and is fused there; the last ``W % 32`` columns, and every
+# column of a row that is unrolled whole, take products hoisted out of the
+# loop, unfused (read from the fusion's optimized LLVM IR).
+_XLA_STEP_COLS = 32
+_XLA_LOOP_MIN_COLS = 320
+
+
+def _homography_line(p: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
+                     xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """``p * x + q * y + r`` over the (oh, ow) grid with (B, 1, 1)
+    coefficients, as ``warp_perspective_batch``'s jitted program rounds
+    it: ``fma(p, x, q * y) + r`` on the columns its vectorised loop
+    covers, each op rounded alone on the rest."""
+    ow = xs.shape[-1]
+    fused = ow // _XLA_STEP_COLS * _XLA_STEP_COLS if ow >= _XLA_LOOP_MIN_COLS else 0
+    plain = p * xs[..., fused:] + q * ys[..., fused:] + r
+    if not fused:
+        return plain
+    head = fma_f32(p, xs[..., :fused], q * ys[..., :fused]) + r
+    return torch.cat([head, plain], dim=-1)
+
+
 def warp_perspective_batch(imgs: torch.Tensor, Minv: torch.Tensor,  # noqa: N803
                            out_h: int, out_w: int, border: str = "constant",
                            border_value: float = 0.0) -> torch.Tensor:
     """cv2.warpPerspective INTER_LINEAR of a (B, H, W, C) uint8 batch with
     per-image INVERSE homographies (B, 3, 3) float32; ``border`` is
-    ``constant`` (``border_value``) or ``replicate``."""
+    ``constant`` (``border_value``) or ``replicate``. Rounded as tpuimage's
+    jitted ``warp_perspective_batch`` (:func:`_homography_line`, the
+    ``"fused"`` tap sum)."""
     ys, xs = _grid(out_h, out_w, imgs.device)
     a = Minv.to(torch.float32).reshape(-1, 9, 1, 1)
-    ac = lambda i: a[:, i]  # noqa: E731
-    denom = ac(6) * xs + ac(7) * ys + ac(8)
+    line = lambda i: _homography_line(a[:, i], a[:, i + 1], a[:, i + 2], xs, ys)  # noqa: E731
+    denom = line(6)
     denom = torch.where(denom != 0, denom, torch.full_like(denom, 1e-20))
-    sx = (ac(0) * xs + ac(1) * ys + ac(2)) / denom
-    sy = (ac(3) * xs + ac(4) * ys + ac(5)) / denom
-    return _bilinear_gather_u8(imgs, sx, sy, border=border, border_value=border_value)
+    sx = line(0) / denom
+    sy = line(3) / denom
+    return _bilinear_gather_u8(imgs, sx, sy, border=border, border_value=border_value,
+                               form="fused")
 
 
 def rotate_pages(imgs: torch.Tensor, angles_deg: torch.Tensor,
@@ -356,4 +404,4 @@ def rotate_pages(imgs: torch.Tensor, angles_deg: torch.Tensor,
     xr, yr = gx - cx, gy - cy
     sx = fma_f32(ca, xr, -(sa * yr)) + cx
     sy = fma_f32(sa, xr, ca * yr) + cy
-    return _bilinear_gather_u8(imgs, sx, sy, border="replicate", rows_first=True)
+    return _bilinear_gather_u8(imgs, sx, sy, border="replicate", form="rows_first")

@@ -8,8 +8,11 @@ CUDA tensor and their plain PyTorch versions on a CPU tensor
 CLAHE reproduces OpenCV as tpuimage does: pad to a tile multiple with
 BORDER_REFLECT_101, per-tile 256-bin histogram, integer clip with uniform
 + stepped-residual redistribution, cumulative LUT scaled by 255/tileArea
-(cvRound), then the bilinear blend of the four neighbouring tile LUTs
-through tpuimage's static blend matrices, with cvRound at the end.
+(cvRound). The bilinear blend of the four neighbouring tile LUTs then
+follows cv2's own order and roundings (per-row and per-column blend
+tables, :func:`clahe_blend_table`), so the result equals
+``cv2.createCLAHE().apply`` at the cvRound .5 ties too, where tpuimage's
+own forms disagree with each other and with cv2.
 """
 from __future__ import annotations
 
@@ -174,14 +177,28 @@ def clahe_blend_matrix(n_pix: int, tile: int, n_tiles: int) -> np.ndarray:
     return m
 
 
+def clahe_blend_table(n_pix: int, tile: int, n_tiles: int) -> np.ndarray:
+    """(n_pix, 3) float32 rows ``(t1, t2, a)`` of cv2's CLAHE blend along
+    one axis: ``pf = p * (1.0f / tile) - 0.5f`` (each op rounded), ``t1 =
+    max(floor(pf), 0)``, ``t2 = min(floor(pf) + 1, n_tiles - 1)`` and the
+    fraction ``a = pf - floor(pf)``. At the edges both tiles are the same
+    one and both weights stay (cv2 still takes two products there, where
+    :func:`clahe_blend_matrix` adds the weights into one entry)."""
+    pf = (np.arange(n_pix, dtype=np.float32)
+          * (np.float32(1.0) / np.float32(tile)) - np.float32(0.5))
+    t = np.floor(pf)
+    return np.stack([np.maximum(t, 0), np.minimum(t + 1, n_tiles - 1),
+                     (pf - t).astype(np.float32)], axis=1).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=32)
-def blend_matrices_on(h: int, w: int, th: int, tw: int, tiles_y: int, tiles_x: int,
-                      device: torch.device):
-    """The blend matrices R (h, tiles_y) and C (tiles_x, w) as float32
-    tensors on ``device`` (built once per geometry)."""
-    r = torch.from_numpy(clahe_blend_matrix(h, th, tiles_y)).to(device)
-    c = torch.from_numpy(np.ascontiguousarray(clahe_blend_matrix(w, tw, tiles_x).T))
-    return r, c.to(device)
+def blend_tables_on(h: int, w: int, th: int, tw: int, tiles_y: int, tiles_x: int,
+                    device: torch.device):
+    """The row table (h, 3) and column table (w, 3) of
+    :func:`clahe_blend_table` as float32 tensors on ``device`` (built once
+    per geometry)."""
+    rows = torch.from_numpy(clahe_blend_table(h, th, tiles_y)).to(device)
+    return rows, torch.from_numpy(clahe_blend_table(w, tw, tiles_x)).to(device)
 
 
 def clahe_tiles(gray: torch.Tensor, tiles_x: int = 8, tiles_y: int = 8):
@@ -204,6 +221,7 @@ def clahe(gray: torch.Tensor, clip_limit: float = 40.0, tiles_x: int = 8,
     g = gray.reshape(-1, h, w)
     tiles, th, tw = clahe_tiles(g, tiles_x, tiles_y)
     luts = tile_luts_from_counts(_hist256_rows(tiles), clip_limit, th * tw)
-    r, c = blend_matrices_on(h, w, th, tw, tiles_y, tiles_x, g.device)
-    out = kernels.clahe_apply(g.contiguous(), luts.reshape(-1, tiles_y, tiles_x, 256), r, c)
+    rows, cols = blend_tables_on(h, w, th, tw, tiles_y, tiles_x, g.device)
+    out = kernels.clahe_apply(g.contiguous(), luts.reshape(-1, tiles_y, tiles_x, 256), rows,
+                              cols)
     return out.reshape(gray.shape)

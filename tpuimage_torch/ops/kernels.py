@@ -398,30 +398,17 @@ def rgb_to_lab(img: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 # clahe_apply: (B, H, W) uint8 + per-image tile LUTs -> (B, H, W) uint8
 # ---------------------------------------------------------------------------
 
-def _blend_pairs(m: torch.Tensor):
-    """Rows of a (n, T) blend matrix -> the first tile with a nonzero
-    weight, the next tile (the same one at the last tile), and their
-    weights, the second 0 where both are the same tile (the kernel's
-    ``blend_pair``)."""
-    n_t = m.shape[1]
-    cols = torch.arange(n_t, device=m.device).expand_as(m)
-    t1 = torch.where(m != 0, cols, torch.full_like(cols, n_t)).amin(dim=1)
-    t1 = torch.where(t1 == n_t, torch.zeros_like(t1), t1)
-    t2 = (t1 + 1).clamp(max=n_t - 1)
-    w1 = m.gather(1, t1[:, None])[:, 0]
-    w2 = torch.where(t2 != t1, m.gather(1, t2[:, None])[:, 0], torch.zeros_like(w1))
-    return t1, t2, w1, w2
-
-
-def clahe_apply_ref(gray: torch.Tensor, luts: torch.Tensor, R: torch.Tensor,
-                    C: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch CLAHE apply: each pixel blends its four tile LUT
-    values in f32, rows (R) first and then columns (C), each product and
-    sum rounded on its own, then cvRound and clamp."""
+def clahe_apply_ref(gray: torch.Tensor, luts: torch.Tensor, rows: torch.Tensor,
+                    cols: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch CLAHE apply in cv2's order: each pixel blends its
+    four tile LUT values ``(l11*xa1 + l12*xa)*ya1 + (l21*xa1 + l22*xa)*ya``
+    in f32 (``xa1 = 1 - xa``, ``ya1 = 1 - ya``), each product and sum
+    rounded on its own, then cvRound and clamp. ``rows`` (H, 3) and
+    ``cols`` (W, 3) are the blend tables ``(t1, t2, a)``."""
     b, h, w = gray.shape
     tx = luts.shape[2]
-    r1, r2, wr1, wr2 = _blend_pairs(R)
-    c1, c2, wc1, wc2 = _blend_pairs(C.t())
+    r1, r2, ya = rows[:, 0].to(torch.int64), rows[:, 1].to(torch.int64), rows[:, 2, None]
+    c1, c2, xa = cols[:, 0].to(torch.int64), cols[:, 1].to(torch.int64), cols[:, 2]
     flat = luts.reshape(b, -1).to(torch.float32)
     v = gray.to(torch.int64).reshape(b, -1)
 
@@ -429,32 +416,33 @@ def clahe_apply_ref(gray: torch.Tensor, luts: torch.Tensor, R: torch.Tensor,
         base = ((rt[:, None] * tx + ct[None, :]) * 256).reshape(1, -1)
         return flat.gather(1, base + v).reshape(b, h, w)
 
-    wr1, wr2 = wr1[:, None], wr2[:, None]
-    in1 = lut(r1, c1) * wr1 + lut(r2, c1) * wr2
-    in2 = lut(r1, c2) * wr1 + lut(r2, c2) * wr2
-    return saturate_u8(in1 * wc1 + in2 * wc2)
+    xa1, ya1 = 1.0 - xa, 1.0 - ya
+    top = lut(r1, c1) * xa1 + lut(r1, c2) * xa
+    bot = lut(r2, c1) * xa1 + lut(r2, c2) * xa
+    return saturate_u8(top * ya1 + bot * ya)
 
 
-def clahe_apply(gray: torch.Tensor, luts: torch.Tensor, R: torch.Tensor,
-                C: torch.Tensor) -> torch.Tensor:
+def clahe_apply(gray: torch.Tensor, luts: torch.Tensor, rows: torch.Tensor,
+                cols: torch.Tensor) -> torch.Tensor:
     """CLAHE apply (replaces tpuimage's ``clahe_apply_pallas``).
 
-    gray: (B, H, W) uint8; luts: (B, ty, tx, 256) uint8 tile LUTs; R:
-    (H, ty) and C: (tx, W) float32 blend matrices (``clahe_blend_matrix``).
-    Returns (B, H, W) uint8."""
+    gray: (B, H, W) uint8; luts: (B, ty, tx, 256) uint8 tile LUTs; rows:
+    (H, 3) and cols: (W, 3) float32 blend tables ``(t1, t2, a)``
+    (``histogram.clahe_blend_table``). Returns (B, H, W) uint8, blended in
+    cv2's order (:func:`clahe_apply_ref`)."""
     _check(gray, "gray", torch.uint8, 3)
     _check(luts, "luts", torch.uint8, 4)
-    _check(R, "R", torch.float32, 2)
-    _check(C, "C", torch.float32, 2)
+    _check(rows, "rows", torch.float32, 2)
+    _check(cols, "cols", torch.float32, 2)
     b, h, w = gray.shape
     ty, tx = luts.shape[1], luts.shape[2]
-    if luts.shape != (b, ty, tx, 256) or R.shape != (h, ty) or C.shape != (tx, w):
+    if luts.shape != (b, ty, tx, 256) or rows.shape != (h, 3) or cols.shape != (w, 3):
         raise ValueError("clahe_apply: inconsistent shapes "
                          f"{tuple(gray.shape)} {tuple(luts.shape)} "
-                         f"{tuple(R.shape)} {tuple(C.shape)}")
-    dev = _device_of(gray, luts, R, C)
+                         f"{tuple(rows.shape)} {tuple(cols.shape)}")
+    dev = _device_of(gray, luts, rows, cols)
     if dev.type == "cpu":
-        return clahe_apply_ref(gray, luts, R, C)
+        return clahe_apply_ref(gray, luts, rows, cols)
     if luts.data_ptr() % 16:
         raise ValueError("clahe_apply: luts must be 16-byte aligned")
     out = torch.empty_like(gray)
@@ -462,8 +450,8 @@ def clahe_apply(gray: torch.Tensor, luts: torch.Tensor, R: torch.Tensor,
         return out
     lib = _load()
     with torch.cuda.device(dev):
-        rc = lib.tpuimage_clahe_apply(gray.data_ptr(), luts.data_ptr(), R.data_ptr(),
-                                      C.data_ptr(), out.data_ptr(), b, h, w, ty, tx,
+        rc = lib.tpuimage_clahe_apply(gray.data_ptr(), luts.data_ptr(), rows.data_ptr(),
+                                      cols.data_ptr(), out.data_ptr(), b, h, w, ty, tx,
                                       _stream(dev))
     _raise_on(rc, "clahe_apply")
     _count("clahe_apply")

@@ -420,21 +420,28 @@ def _fallback_common_size(shape, page: str, scale_long: int) -> Tuple[int, int]:
     return int(round(scale_long * ratio)), scale_long
 
 
-def _inverse_homography(quad: np.ndarray, th: int, tw: int) -> np.ndarray:
-    """float64 inverse of the homography taking ``quad`` to the (th, tw)
-    page rectangle (what the warp samples through)."""
+def _page_homography(quad: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """The float64 homography taking ``quad`` to the (th, tw) page
+    rectangle."""
     dst = np.array([[0, 0], [tw - 1, 0], [tw - 1, th - 1], [0, th - 1]], dtype=np.float32)
-    return np.linalg.inv(geometry.get_perspective_transform(quad.astype(np.float32), dst))
+    return geometry.get_perspective_transform(quad.astype(np.float32), dst)
+
+
+def _inverse_homography(quad: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """float64 inverse of :func:`_page_homography` (what the warp samples
+    through)."""
+    return np.linalg.inv(_page_homography(quad, th, tw))
 
 
 def perspective_warp(rgb, quad: np.ndarray, page: str = "A4", scale_long: int = 1600,
                      device=None) -> torch.Tensor:
     """The quad's homography to the fixed page rectangle: (th, tw[, 3])
-    uint8, bilinear with a constant-0 border."""
+    uint8, bilinear with a constant-0 border, rounded op by op as
+    tpuimage's ``perspective_warp`` runs its ``warp_perspective`` (no
+    jit)."""
     th, tw = _warp_target_size(quad, page, scale_long)
-    x = as_input(rgb, device)
-    minv = torch.from_numpy(_inverse_homography(quad, th, tw).astype(np.float32))
-    return geometry.warp_perspective_batch(x[None], minv[None].to(x.device), th, tw)[0]
+    return geometry.warp_perspective(as_input(rgb, device), _page_homography(quad, th, tw),
+                                     th, tw)
 
 
 # ---------------------------------------------------------------------------

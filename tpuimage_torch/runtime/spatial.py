@@ -10,7 +10,7 @@ pages too large for one card.
 - :func:`night_gray_spatial`, :func:`night_rgb_spatial`: median 3 on a
   1-row halo, each shard's own tile rows' CLAHE LUTs (the ``hist256``
   kernel), the LUT table gathered, and the ``clahe_apply`` kernel with the
-  shard's rows of the global row-blend matrix. That is the same kernel
+  shard's rows of the global row blend table. That is the same kernel
   with the same arithmetic as the unsharded ``night_gray`` / ``night_rgb``,
   so the outputs are equal byte for byte (night RGB against the
   unsharded composition with ``lab_to_rgb(impl="lut")``). tiles_y must
@@ -43,7 +43,7 @@ import torch
 from tpuimage_torch.ops import edges, geometry, hough, kernels
 from tpuimage_torch.ops.arith import normalize_minmax_lut
 from tpuimage_torch.ops.color import lab_to_rgb, rgb_to_gray, rgb_to_lab
-from tpuimage_torch.ops.histogram import (blend_matrices_on, hist256, hist256_batch,
+from tpuimage_torch.ops.histogram import (blend_tables_on, hist256, hist256_batch,
                                           tile_luts_from_counts)
 from tpuimage_torch.ops.median import median_blur
 from tpuimage_torch.ops.morphology import morph_blackhat, morph_close, structuring_element
@@ -117,7 +117,7 @@ def _clahe_sharded(planes: Sequence[torch.Tensor], h: int, w: int, clip_limit: f
     """CLAHE of (B, H, W) planes whose rows are split over the shards at
     tile-row boundaries: each shard's tile LUTs from its own rows, the
     (B, ty, tx, 256) table gathered, then ``clahe_apply`` with the shard's
-    rows of the global row-blend matrix R."""
+    rows of the global row table."""
     th, tw = h // tiles_y, w // tiles_x
     tyl = tiles_y // len(planes)
     local = []
@@ -129,10 +129,10 @@ def _clahe_sharded(planes: Sequence[torch.Tensor], h: int, w: int, clip_limit: f
         local.append(luts.reshape(b, tyl, tiles_x, 256))
     out = []
     for i, (p, luts) in enumerate(zip(planes, all_gather(local, dim=1))):
-        r, c = blend_matrices_on(h, w, th, tw, tiles_y, tiles_x, p.device)
+        rows, cols = blend_tables_on(h, w, th, tw, tiles_y, tiles_x, p.device)
         hl = p.shape[1]
-        out.append(kernels.clahe_apply(p.contiguous(), luts, r[i * hl:(i + 1) * hl].contiguous(),
-                                       c))
+        out.append(kernels.clahe_apply(p.contiguous(), luts,
+                                       rows[i * hl:(i + 1) * hl].contiguous(), cols))
     return out
 
 

@@ -31,7 +31,7 @@ the paths' shapes:
 - morph3: binary_close3 on the 8 eroded morph_seq planes (963 high, 1280
   wide) and their Otsu thresholds, gray_erode3 on the 8 RGB photos;
 - clahe_apply: the L planes of 8 median-filtered night scenes of 1280x853
-  with the night path's 8x8 tile LUTs (clip limit 2) and blend matrices,
+  with the night path's 8x8 tile LUTs (clip limit 2) and blend tables,
   as chip_smoke.py phase 7 makes them;
 - lab: rgb_to_lab on those 8 median-filtered night scenes (the night
   path's and landscape's shape), with the packed tables of
@@ -357,7 +357,7 @@ def _clahe_cases(args, dev, stream):
     tiles, th, tw = histogram.clahe_tiles(lum, night.TILES, night.TILES)
     luts = histogram.tile_luts_from_counts(kernels.hist256_batch(tiles), night.CLIP_LIMIT,
                                            th * tw).reshape(N, night.TILES, night.TILES, 256)
-    R, C = histogram.blend_matrices_on(*NIGHT, th, tw, night.TILES, night.TILES, dev)
+    R, C = histogram.blend_tables_on(*NIGHT, th, tw, night.TILES, night.TILES, dev)
     out = torch.empty_like(lum)
     data = {}
 
