@@ -40,6 +40,7 @@ from tpuimage_torch.ops.filters import (gaussian_blur_u8_plain, gaussian_kernel_
 from tpuimage_torch.ops.morphology import (MORPH_RECT, dilate, erode, morph_blackhat_plain,
                                            morph_close, structuring_element)
 from tpuimage_torch.ops.threshold import adaptive_threshold, threshold_binary
+from tpuimage_torch.runtime import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -54,31 +55,29 @@ _lib: Optional[ctypes.CDLL] = None
 # nvcc's output of the last build (ptxas register / shared-memory report)
 build_log = ""
 
-# kernel name -> launches since the last reset_launch_counts(); read and
-# written under _lock, since scan_stream launches kernels from its worker
-# threads too
-_launches: Dict[str, int] = {"hist256": 0, "hough_votes": 0, "rgb_to_lab": 0,
-                             "clahe_apply": 0, "gray_erode3": 0,
-                             "binary_close3": 0, "gaussian_blur_u8": 0,
-                             "gauss_chain": 0, "blackhat_rect": 0,
-                             "inkmask_weighted": 0, "bilateral": 0,
-                             "rank_extract": 0}
+# the kernels whose launches are counted, as ``kernel.<name>`` among
+# runtime.profiling's counters (taken under its lock: scan_stream launches
+# kernels from its worker threads too)
+_KERNELS = ("hist256", "hough_votes", "rgb_to_lab", "clahe_apply", "gray_erode3",
+            "binary_close3", "gaussian_blur_u8", "gauss_chain", "blackhat_rect",
+            "inkmask_weighted", "bilateral", "rank_extract")
 
 
 def launch_counts() -> Dict[str, int]:
-    with _lock:
-        return dict(_launches)
+    """Launches of each kernel since the last reset."""
+    c = profiling.counts()
+    return {k: c.get(f"kernel.{k}", 0) for k in _KERNELS}
 
 
 def reset_launch_counts() -> None:
-    with _lock:
-        for k in _launches:
-            _launches[k] = 0
+    """Zero the launch counts: ``profiling.reset_counts``, which clears
+    every counter and the span buffer, so that what runs next is
+    recorded alone."""
+    profiling.reset_counts()
 
 
 def _count(name: str) -> None:
-    with _lock:
-        _launches[name] += 1
+    profiling.count(f"kernel.{name}")
 
 
 def _nvcc() -> str:

@@ -39,6 +39,15 @@ mesh's shards, and with ``space_mesh=`` process_document runs the
 post-warp stages H-sharded (``runtime.mesh``, ``runtime.spatial``); the
 results equal the unsharded calls'.
 
+While a profiler runs, ``scan_batch`` records the span
+``docscan.scan_batch`` over its phases (``docscan.load_localize``,
+``docscan.quad_fit``, ``docscan.post_warp``, ``docscan.fetch``), the quad
+fit one ``docscan.fit_quad`` a photo, and ``docscan_post_warp_batch``
+its stages (``runtime.profiling``); ``scan_stream`` gives each batch one
+call id that its phases carry across threads. ``docscan.quads`` and
+``docscan.quad_fallbacks`` count the quad fits and their min-area-rect
+fallbacks.
+
 Per-request failures are isolated as in tpuimage: a host-side failure
 marks its own request, a failed batched device call marks its group.
 Nothing here imports the JAX package: the host-only helpers are the
@@ -75,6 +84,7 @@ from tpuimage_torch.ops.morphology import morph_blackhat, morph_close, structuri
 from tpuimage_torch.ops.threshold import adaptive_threshold
 from tpuimage_torch.runtime import spatial
 from tpuimage_torch.runtime.mesh import canonical_device, run_data_parallel
+from tpuimage_torch.runtime.profiling import count, new_call, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,16 +256,21 @@ def docscan_post_warp_batch(warped_batch: torch.Tensor,
     ``deskew_overflow``. Only the pages whose angle is not 0 are rotated;
     angle 0 is an exact identity."""
     c = config
-    pre = _pre_deskew_stages(warped_batch, c)
-    weighted = pre["weighted"]
-    angles, overflows = _deskew_angle(weighted, c.canny_low, c.canny_high,
-                                      c.max_rotate, c.deskew_max_edges)
-    rot = torch.nonzero(angles != 0.0).flatten()
-    desk = weighted
-    if rot.numel():
-        desk = weighted.clone()
-        desk[rot] = geometry.rotate_pages(weighted[rot], angles[rot], c.max_rotate)
-    clean = _morph_cleanup(desk, c)
+    with span("docscan.post_warp"):
+        with span("docscan.pre_deskew"):
+            pre = _pre_deskew_stages(warped_batch, c)
+        weighted = pre["weighted"]
+        with span("docscan.deskew_angle"):
+            angles, overflows = _deskew_angle(weighted, c.canny_low, c.canny_high,
+                                              c.max_rotate, c.deskew_max_edges)
+        with span("docscan.rotate"):   # the nonzero waits for the card
+            rot = torch.nonzero(angles != 0.0).flatten()
+            desk = weighted
+            if rot.numel():
+                desk = weighted.clone()
+                desk[rot] = geometry.rotate_pages(weighted[rot], angles[rot], c.max_rotate)
+        with span("docscan.morph_cleanup"):
+            clean = _morph_cleanup(desk, c)
     return {**pre, "deskew": desk, "clean": clean, "deskew_angle": angles,
             "deskew_overflow": overflows}
 
@@ -312,20 +327,29 @@ def _largest_quadrilateral(contour_list) -> Optional[np.ndarray]:
 def _quad_from_localize(edges: np.ndarray, segs: np.ndarray, ok: np.ndarray,
                         shape, config: DocScanConfig) -> Optional[np.ndarray]:
     """Host half of localize: draw the segments over the edge map, trace
-    external contours, pick the largest quadrilateral."""
-    line_img = draw_segments(edges.shape, segs[ok], thickness=2)
-    contour_list = cnt.find_external_contours(edges | line_img)
-    img_area = shape[0] * shape[1]
-    areas = cnt.contour_areas(contour_list) / max(img_area, 1)
-    filtered = [c for c, a in zip(contour_list, areas)
-                if config.min_area_ratio <= a <= config.max_area_ratio]
-    quad = _largest_quadrilateral(filtered if filtered else contour_list)
-    if quad is None:
-        if not contour_list:
-            return None
-        c = max(contour_list, key=cnt.contour_area)
-        quad = cnt.box_points(cnt.min_area_rect(c))
-    return order_quad_points(quad)
+    external contours, pick the largest quadrilateral, or else the
+    min-area rectangle of the largest contour (counted as
+    ``docscan.quads`` and ``docscan.quad_fallbacks``)."""
+    count("docscan.quads")
+    with span("docscan.fit_quad"):
+        with span("docscan.draw_segments"):
+            line_img = draw_segments(edges.shape, segs[ok], thickness=2)
+        with span("docscan.find_contours"):
+            contour_list = cnt.find_external_contours(edges | line_img)
+        img_area = shape[0] * shape[1]
+        areas = cnt.contour_areas(contour_list) / max(img_area, 1)
+        filtered = [c for c, a in zip(contour_list, areas)
+                    if config.min_area_ratio <= a <= config.max_area_ratio]
+        with span("docscan.approx_quads"):
+            quad = _largest_quadrilateral(filtered if filtered else contour_list)
+        if quad is None:
+            if not contour_list:
+                return None
+            count("docscan.quad_fallbacks")
+            with span("docscan.min_area_rect"):
+                c = max(contour_list, key=cnt.contour_area)
+                quad = cnt.box_points(cnt.min_area_rect(c))
+        return order_quad_points(quad)
 
 
 def _warp_target_size(quad: np.ndarray, page: str, scale_long: int) -> Tuple[int, int]:
@@ -373,7 +397,8 @@ def _localize_parse(edges: torch.Tensor, segs: torch.Tensor, ok: torch.Tensor,
     """Host half of the batched localize: fetch the edge maps and segments
     and fit each image's quad. A failed fit is isolated to its image: its
     entry is the exception."""
-    edges, segs, ok = edges.cpu().numpy(), segs.cpu().numpy(), ok.cpu().numpy()
+    with span("docscan.localize_read"):
+        edges, segs, ok = edges.cpu().numpy(), segs.cpu().numpy(), ok.cpu().numpy()
     out = []
     for j in range(edges.shape[0]):
         try:
@@ -563,35 +588,39 @@ def _as_rgb_tensor(item) -> torch.Tensor:
     return t
 
 
-def _scan_load_localize(inputs, config: DocScanConfig, device: torch.device) -> dict:
+def _scan_load_localize(inputs, config: DocScanConfig, device: torch.device,
+                        call: Optional[int] = None) -> dict:
     """Phase 1: load, group by shape, one upload and one localize call per
     group. The edge maps and segments stay on the device, as does each
-    group's stack for the warp."""
-    n = len(inputs)
-    rgbs: list = [None] * n
-    metas: list = [None] * n
-    for i, item in enumerate(inputs):
-        try:
-            rgbs[i] = _as_rgb_tensor(item)
-        except Exception as e:  # noqa: BLE001 — per-request isolation
-            metas[i] = {"error": str(e)}
-    by_shape: Dict[tuple, list] = {}
-    for i, rgb in enumerate(rgbs):
-        if rgb is not None:
-            by_shape.setdefault(tuple(rgb.shape), []).append(i)
-    stacks: Dict[tuple, tuple] = {}   # shape -> (device stack, {idx: row})
-    loc: Dict[tuple, tuple] = {}      # shape -> (edges, segs, ok) on the device
-    for shape, idxs in by_shape.items():
-        try:
-            stack = torch.stack([rgbs[i].to(device) for i in idxs])
-            stacks[shape] = (stack, {i: j for j, i in enumerate(idxs)})
-            loc[shape] = _localize_device_batch(stack, config.canny_low, config.canny_high)
-        except Exception as e:  # noqa: BLE001 — batched device call: whole group
-            for i in idxs:
+    group's stack for the warp. ``call``: the call id of a batch of
+    ``scan_stream`` (``profiling.new_call``), kept in the state for the
+    later phases' spans."""
+    with span("docscan.load_localize", call):
+        n = len(inputs)
+        rgbs: list = [None] * n
+        metas: list = [None] * n
+        for i, item in enumerate(inputs):
+            try:
+                rgbs[i] = _as_rgb_tensor(item)
+            except Exception as e:  # noqa: BLE001 — per-request isolation
                 metas[i] = {"error": str(e)}
-                rgbs[i] = None
+        by_shape: Dict[tuple, list] = {}
+        for i, rgb in enumerate(rgbs):
+            if rgb is not None:
+                by_shape.setdefault(tuple(rgb.shape), []).append(i)
+        stacks: Dict[tuple, tuple] = {}   # shape -> (device stack, {idx: row})
+        loc: Dict[tuple, tuple] = {}      # shape -> (edges, segs, ok) on the device
+        for shape, idxs in by_shape.items():
+            try:
+                stack = torch.stack([rgbs[i].to(device) for i in idxs])
+                stacks[shape] = (stack, {i: j for j, i in enumerate(idxs)})
+                loc[shape] = _localize_device_batch(stack, config.canny_low, config.canny_high)
+            except Exception as e:  # noqa: BLE001 — batched device call: whole group
+                for i in idxs:
+                    metas[i] = {"error": str(e)}
+                    rgbs[i] = None
     return {"n": n, "rgbs": rgbs, "metas": metas, "by_shape": by_shape,
-            "stacks": stacks, "loc": loc}
+            "stacks": stacks, "loc": loc, "call": call}
 
 
 def _scan_quad_fit(state: dict, config: DocScanConfig, fallback_common_shape: bool) -> None:
@@ -599,7 +628,16 @@ def _scan_quad_fit(state: dict, config: DocScanConfig, fallback_common_shape: bo
     solve the homographies, then warp the quad pages in one batched call
     per (input shape, target shape) and resize the use-whole pages.
     Leaves ``state['pages']`` on the device."""
-    rgbs, metas, stacks = state["rgbs"], state["metas"], state["stacks"]
+    with span("docscan.quad_fit", state["call"]):
+        quads = _scan_fit_quads(state, config)
+        with span("docscan.warp"):
+            _scan_warp(state, quads, config, fallback_common_shape)
+
+
+def _scan_fit_quads(state: dict, config: DocScanConfig) -> list:
+    """Phase 2's host half: each photo's quad, None, or its error in
+    ``state['metas']``."""
+    rgbs, metas = state["rgbs"], state["metas"]
     quads: list = [None] * state["n"]
     for shape, idxs in state["by_shape"].items():
         if shape not in state["loc"]:
@@ -615,7 +653,14 @@ def _scan_quad_fit(state: dict, config: DocScanConfig, fallback_common_shape: bo
             else:
                 quads[i] = q
     del state["loc"]
+    return quads
 
+
+def _scan_warp(state: dict, quads: list, config: DocScanConfig,
+               fallback_common_shape: bool) -> None:
+    """Phase 2's device half: the homographies, the batch warp of the quad
+    pages and the use-whole resizes."""
+    rgbs, metas, stacks = state["rgbs"], state["metas"], state["stacks"]
     pages: list = [None] * state["n"]
     warp_groups: Dict[tuple, list] = {}
     for i, rgb in enumerate(rgbs):
@@ -701,26 +746,28 @@ def _scan_postwarp_dispatch(state: dict, config: DocScanConfig, mesh=None) -> No
 def _scan_fetch(state: dict) -> list:
     """Phase 4: copy each group's results to the host and build the
     per-request dicts."""
-    metas = state["metas"]
-    out_by_idx = {}
-    for idxs, clean, angles, oflow in state["groups"]:
-        try:
-            clean, angles, oflow = clean.cpu().numpy(), angles.cpu().numpy(), oflow.cpu().numpy()
-        except Exception as e:  # noqa: BLE001 — batched device call: whole group
-            for i in idxs:
-                metas[i] = {"error": str(e)}
-            continue
-        for j, i in enumerate(idxs):
-            out_by_idx[i] = (clean[j], float(angles[j]), bool(oflow[j]))
-    results = []
-    for i, meta in enumerate(metas):
-        if "error" in meta:
-            results.append(meta)
-        else:
-            binary, angle, oflow = out_by_idx[i]
-            results.append({**meta, "binary": binary, "deskew_angle": angle,
-                            "deskew_overflow": oflow})
-    return results
+    with span("docscan.fetch", state["call"]):
+        metas = state["metas"]
+        out_by_idx = {}
+        for idxs, clean, angles, oflow in state["groups"]:
+            try:
+                clean, angles, oflow = (clean.cpu().numpy(), angles.cpu().numpy(),
+                                        oflow.cpu().numpy())
+            except Exception as e:  # noqa: BLE001 — batched device call: whole group
+                for i in idxs:
+                    metas[i] = {"error": str(e)}
+                continue
+            for j, i in enumerate(idxs):
+                out_by_idx[i] = (clean[j], float(angles[j]), bool(oflow[j]))
+        results = []
+        for i, meta in enumerate(metas):
+            if "error" in meta:
+                results.append(meta)
+            else:
+                binary, angle, oflow = out_by_idx[i]
+                results.append({**meta, "binary": binary, "deskew_angle": angle,
+                                "deskew_overflow": oflow})
+        return results
 
 
 def _front_device(device, mesh) -> torch.device:
@@ -785,10 +832,11 @@ def scan_batch(inputs, config: DocScanConfig = GUI_DOCUMENT_CONFIG,
                                fallback_common_shape=fallback_common_shape):
             out.extend(res)
         return out
-    state = _scan_load_localize(inputs, config, dev)
-    _scan_quad_fit(state, config, fallback_common_shape)
-    _scan_postwarp_dispatch(state, config, mesh)
-    return _scan_fetch(state)
+    with span("docscan.scan_batch"):
+        state = _scan_load_localize(inputs, config, dev)
+        _scan_quad_fit(state, config, fallback_common_shape)
+        _scan_postwarp_dispatch(state, config, mesh)
+        return _scan_fetch(state)
 
 
 def scan_stream(batches, config: DocScanConfig = GUI_DOCUMENT_CONFIG, device=None,
@@ -831,9 +879,10 @@ def _scan_stream(it, config: DocScanConfig, dev: torch.device, mesh,
                 inputs = next(it)
             except StopIteration:
                 return None
+            call = new_call()   # the batch's spans share it across threads
             if ex is None:
-                return _scan_load_localize(inputs, config, dev)
-            return ex.submit(_scan_load_localize, inputs, config, dev)
+                return _scan_load_localize(inputs, config, dev, call)
+            return ex.submit(_scan_load_localize, inputs, config, dev, call)
 
         def start_fetch(st):
             return _scan_fetch(st) if fex is None else fex.submit(_scan_fetch, st)

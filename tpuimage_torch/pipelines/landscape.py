@@ -47,6 +47,7 @@ from tpuimage_torch.ops.histogram import clahe
 from tpuimage_torch.ops.median import median_blur
 from tpuimage_torch.ops.metrics import psnr, ssim
 from tpuimage_torch.ops.nlm import nlm_denoise_colored
+from tpuimage_torch.runtime.profiling import span
 
 # Landscape.py's preset (the GUI hard-codes the same values)
 ENHANCEMENT_PRESET = {
@@ -197,9 +198,15 @@ def enhance_image(rgb, is_noisy: bool = False, device=None) -> torch.Tensor:
 def landscape_gui(rgb, device=None) -> torch.Tensor:
     """The GUI's landscape route: bilateral 9/100/75, CLAHE (2.2, sky 2,
     blend 0.55), unsharp 0.8."""
-    cur = bilateral_filter(as_input(rgb, device), 9, 100, 75)
-    cur = enhance_contrast_clahe(cur, 2.2, (8, 8), 2.0, 0.55)
-    return sharpen_image(cur, 0.8, 1.0)
+    with span("landscape.gui"):
+        with span("landscape.upload"):
+            x = as_input(rgb, device)
+        with span("landscape.bilateral"):
+            cur = bilateral_filter(x, 9, 100, 75)
+        with span("landscape.clahe"):
+            cur = enhance_contrast_clahe(cur, 2.2, (8, 8), 2.0, 0.55)
+        with span("landscape.sharpen"):
+            return sharpen_image(cur, 0.8, 1.0)
 
 
 def landscape_eval_step(rgb, generator: Optional[torch.Generator] = None,

@@ -1,5 +1,6 @@
 """Runtime services (counterpart of ``tpuimage.runtime``): ``profiling``
-(sync, trace annotations, throughput counters, a profiler trace),
+(sync, spans recorded while a profiler runs, counters, throughput
+counters, a profiler trace),
 ``health`` (a device claim with a deadline), ``cache`` (where the
 compiled libraries are kept), ``mesh`` (the single-controller device
 mesh: batch sharding, halo exchange and collectives over shard lists) and
