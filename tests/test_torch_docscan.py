@@ -128,6 +128,223 @@ def test_host_quad_fit_helpers_match_tpuimage(rng, monkeypatch):
                                   jcnt.box_points(jcnt.min_area_rect(quad)))
 
 
+def _frame_edges(seed, h=1080, w=1920, k=9, step=3.0, lines=()):
+    """A frame's edge map: a k-gon of 1 px edges inset from the border
+    with outward spikes every ``step`` px along it, each traced on both
+    sides by the outer border (100k+ points at 1920x1080, as localize's
+    joined frame border reads on the benchmark's photos), 1% noise pixels,
+    and ``lines`` drawn 2 px wide like localize's Hough segments."""
+    from tpuimage_torch.ops.draw import draw_segments
+    rng = np.random.default_rng(seed)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+    c = np.array([w / 2, h / 2])
+    poly = c + np.stack([np.cos(ang) * w, np.sin(ang) * h], 1) * rng.uniform(0.36, 0.44, (k, 1))
+    segs = []
+    for i in range(k):
+        p, q = poly[i], poly[(i + 1) % k]
+        segs.append(np.r_[p, q])
+        d = q - p
+        nrm = np.array([d[1], -d[0]]) / np.hypot(*d)
+        if nrm @ (p - c) < 0:
+            nrm = -nrm
+        for f in np.arange(0, 1, step / np.hypot(*d)):
+            s = p + f * d
+            segs.append(np.r_[s, s + nrm * rng.uniform(20, 90) * h / 1080])
+    edges = draw_segments((h, w), segs, thickness=1)
+    edges |= ((rng.random((h, w)) < 0.01) * 255).astype(np.uint8)
+    if len(lines):
+        edges |= draw_segments((h, w), lines, thickness=2)
+    return edges
+
+
+@pytest.fixture(scope="module")
+def frame_border():
+    """The largest contour of a 1920x1080 frame's edge map."""
+    from tpuimage_torch.detect import contours as tcnt
+    contour_list = tcnt.find_external_contours(_frame_edges(5))
+    c = contour_list[int(np.argmax(tcnt.contour_areas(contour_list)))]
+    assert len(c) > 100_000
+    return c
+
+
+def _hull_inputs(name, frame_border):
+    rng = np.random.default_rng(20150823)
+    if name == "frame_border":
+        return frame_border
+    if name == "int_cloud_dups":
+        return rng.integers(0, 40, (3000, 2))
+    if name == "int_disc":
+        p = rng.normal(0, 300, (20000, 2))
+        return np.round(p[np.hypot(*p.T) < 700]).astype(np.int64)
+    if name == "collinear":
+        t = rng.integers(-50, 50, 200)
+        return np.stack([3 * t + 7, -2 * t + 1], 1)
+    if name == "collinear_float":
+        return np.stack([np.linspace(0, 1, 50), np.linspace(0, 1, 50) * 0.3], 1)
+    if name in ("one", "two", "three"):
+        return rng.integers(-9, 9, ({"one": 1, "two": 2, "three": 3}[name], 2))
+    if name == "two_same":
+        return np.array([[4, 5], [4, 5]])
+    if name == "negative":
+        return rng.integers(-1000, -10, (5000, 2))
+    if name == "float":
+        return rng.normal(0, 50, (5000, 2))
+    if name == "float_grid":
+        return rng.integers(-20, 20, (3000, 2)) * 0.1
+    if name == "beyond_2_25":
+        return rng.integers(-2 ** 40, 2 ** 40, (3000, 2))
+    if name == "list":
+        return [[0, 0], [5, 0], [5, 5], [2, 2], [0, 5]]
+    if name.startswith("float_on_edge"):
+        # points rounded onto a segment, a cloud to one side: the chain's
+        # rounded crosses keep some of them, so dropping any changes its
+        # output (the prefilter must stay off here)
+        rng = np.random.default_rng(int(name.split("_")[-1]))
+        a = rng.normal(0, 10, 2)
+        b = a + rng.normal(0, 50, 2)
+        on = a + rng.uniform(0, 1, (400, 1)) * (b - a)
+        nrm = np.array([a[1] - b[1], b[0] - a[0]])
+        side = ((a + b) / 2 + nrm * rng.uniform(0.05, 0.5, (50, 1))
+                + (b - a) * rng.uniform(-0.3, 0.3, (50, 1)))
+        return np.concatenate([on, side, [a, b]])
+    raise KeyError(name)
+
+
+def _rect_bytes(rect):
+    (cx, cy), (w, h), ang = rect
+    return np.asarray([cx, cy, w, h, ang], np.float64).tobytes()
+
+
+def _hull_paths(points, monkeypatch):
+    """(hull, rect bytes, box points) from the port's default path, its
+    numpy fallback and tpuimage's, with the native hull counts of each."""
+    from tpuimage.detect import contours as jcnt
+    from tpuimage_torch import native
+    from tpuimage_torch.detect import contours as tcnt
+    from tpuimage_torch.runtime import profiling
+
+    def one(mod):
+        before = profiling.counts().get("contours.hull_native", 0)
+        hull = mod.convex_hull(points)
+        rect = mod.min_area_rect(points)
+        out = (hull, _rect_bytes(rect), mod.box_points(rect))
+        return out, profiling.counts().get("contours.hull_native", 0) - before
+
+    got = one(tcnt)
+    with monkeypatch.context() as m:
+        m.setattr(native, "load_native", lambda: None)
+        fallback = one(tcnt)
+    return got, fallback, one(jcnt)
+
+
+def _assert_same_bytes(a, b):
+    assert a[0].dtype == b[0].dtype == np.float64
+    assert a[0].shape == b[0].shape
+    assert a[0].tobytes() == b[0].tobytes()
+    assert a[1] == b[1]
+    assert a[2].dtype == b[2].dtype and a[2].tobytes() == b[2].tobytes()
+
+
+@pytest.mark.parametrize("name", [
+    "frame_border", "int_cloud_dups", "int_disc", "collinear", "collinear_float", "one",
+    "two", "two_same", "three", "negative", "float", "float_grid", "beyond_2_25", "list",
+    "float_on_edge_2", "float_on_edge_123", "float_on_edge_148"])
+def test_convex_hull_native_byte_equal(name, frame_border, monkeypatch):
+    """The C++ hull (with the interior prefilter on integer inputs below
+    2^25, without it elsewhere) gives the numpy body's bytes and
+    tpuimage's; min_area_rect and box_points follow."""
+    from tpuimage_torch import native
+    assert native.load_native() is not None
+    points = _hull_inputs(name, frame_border)
+    (got, n_got), (fallback, n_fallback), (ref, _) = _hull_paths(points, monkeypatch)
+    assert n_got == 2 and n_fallback == 0       # convex_hull, then min_area_rect's
+    _assert_same_bytes(got, fallback)
+    _assert_same_bytes(got, ref)
+    if name == "frame_border":
+        assert 4 < len(got[0]) < 100
+
+
+@pytest.mark.parametrize("bad", ["nan", "inf", "negative_zero"])
+def test_convex_hull_numpy_body_takes_what_native_cannot(bad, monkeypatch):
+    """Non-finite coordinates and negative zeros (np.unique folds -0.0
+    into 0.0 by the sort's order) take the numpy body, uncounted."""
+    from tpuimage.detect import contours as jcnt
+    from tpuimage_torch.detect import contours as tcnt
+    from tpuimage_torch.runtime import profiling
+    pts = np.random.default_rng(7).integers(-20, 20, (400, 2)).astype(np.float64)
+    pts[[3, 17]] = {"nan": [np.nan, 1.0], "inf": [np.inf, 2.0], "negative_zero": [-0.0, 5.0]}[bad]
+    before = profiling.counts().get("contours.hull_native", 0)
+    with np.errstate(invalid="ignore"):
+        hull = tcnt.convex_hull(pts)
+        assert profiling.counts().get("contours.hull_native", 0) == before
+        ref = jcnt.convex_hull(pts)
+    assert hull.dtype == ref.dtype and hull.tobytes() == ref.tobytes()
+
+
+def _triangle_contours(seed, tie_at):
+    """Triangles (no 4-gon to find) with the two largest areas equal: a
+    translated copy of the largest inserted at ``tie_at``."""
+    rng = np.random.default_rng(seed)
+    tris = [rng.integers(0, 40, (3, 2)) + rng.integers(0, 200, 2) for _ in range(12)]
+    from tpuimage_torch.detect import contours as tcnt
+    big = tris[int(np.argmax([tcnt.contour_area(t) for t in tris]))]
+    tris.insert(tie_at, big + np.array([300, 7]))
+    return tris
+
+
+@pytest.mark.parametrize("seed,tie_at", [(1, 0), (2, 5), (3, 12), (4, 13)])
+def test_quad_fit_fallback_takes_the_first_largest_contour(seed, tie_at, monkeypatch):
+    """The fallback's one area pass (the first argmax of the areas the
+    filter computed) picks the contour ``max(contour_list,
+    key=contour_area)`` picks, ties included."""
+    from tpuimage_torch.detect import contours as tcnt
+    contour_list = _triangle_contours(seed, tie_at)
+    areas = [tcnt.contour_area(c) for c in contour_list]
+    assert areas.count(max(areas)) == 2
+    want = max(contour_list, key=tcnt.contour_area)
+    picked, min_area_rect = [], tcnt.min_area_rect
+    monkeypatch.setattr(tdoc.cnt, "find_external_contours", lambda binary: contour_list)
+    monkeypatch.setattr(tdoc.cnt, "min_area_rect",
+                        lambda c: picked.append(c) or min_area_rect(c))
+    edges = np.zeros((400, 600), np.uint8)
+    segs, ok = np.zeros((1, 4), np.float32), np.zeros(1, bool)
+    quad = tdoc._quad_from_localize(edges, segs, ok, edges.shape, CFG)
+    assert len(picked) == 1 and picked[0] is want
+    np.testing.assert_array_equal(
+        quad, tdoc.order_quad_points(tcnt.box_points(min_area_rect(want))))
+
+
+def test_quad_fit_fallback_end_to_end_native_and_numpy(monkeypatch):
+    """_quad_from_localize on a frame whose fit falls back: the native
+    path, the numpy fallbacks and tpuimage's give equal quads."""
+    from tpuimage_torch import native
+    from tpuimage_torch.ops import draw as tdraw
+    from tpuimage_torch.runtime import profiling
+    h, w = 270, 480
+    lines = np.array([[0, 20, 479, 31], [40, 0, 52, 269], [300, 269, 479, 150]], np.float32)
+    edges = _frame_edges(9, h, w, step=4.0, lines=lines[:1])
+    segs = np.concatenate([lines, np.zeros((5, 4), np.float32)])
+    ok = np.arange(len(segs)) < len(lines)
+
+    def fit():
+        c0 = profiling.counts()
+        q = tdoc._quad_from_localize(edges, segs, ok, (h, w), CFG)
+        c1 = profiling.counts()
+        return q, {k: c1.get(k, 0) - c0.get(k, 0)
+                   for k in ("docscan.quad_fallbacks", "contours.hull_native")}
+
+    quad, n = fit()
+    assert n == {"docscan.quad_fallbacks": 1, "contours.hull_native": 1}
+    with monkeypatch.context() as m:
+        m.setattr(native, "load_native", lambda: None)
+        m.setattr(tdraw, "load_native", lambda: None)
+        quad_numpy, n_numpy = fit()
+    assert n_numpy == {"docscan.quad_fallbacks": 1, "contours.hull_native": 0}
+    ref = jdoc._quad_from_localize(edges, segs, ok, (h, w), JCFG)
+    assert quad.dtype == quad_numpy.dtype == ref.dtype
+    assert quad.tobytes() == quad_numpy.tobytes() == ref.tobytes()
+
+
 # ---------------------------------------------------------------------------
 # post-warp program
 # ---------------------------------------------------------------------------

@@ -218,14 +218,18 @@ def test_quad_counters_count_a_clean_quad_and_a_fallback():
     assert profiling.counts() == {"docscan.quads": 1}
     quad = tdoc._quad_from_localize(disc, segs, ok, disc.shape, CFG)
     assert quad.shape == (4, 2)
-    assert profiling.counts() == {"docscan.quads": 2, "docscan.quad_fallbacks": 1}
+    # each fallback's hull is the native one, counted beside it
+    assert profiling.counts() == {"docscan.quads": 2, "docscan.quad_fallbacks": 1,
+                                  "contours.hull_native": 1}
     assert tdoc._quad_from_localize(np.zeros_like(rect), segs, ok, rect.shape, CFG) is None
-    assert profiling.counts() == {"docscan.quads": 3, "docscan.quad_fallbacks": 1}
+    assert profiling.counts() == {"docscan.quads": 3, "docscan.quad_fallbacks": 1,
+                                  "contours.hull_native": 1}
     with _cpu_profile():
         tdoc._localize_parse(torch.from_numpy(np.stack([rect, disc])),
                              torch.from_numpy(np.stack([segs, segs])),
                              torch.from_numpy(np.stack([ok, ok])), CFG)
-    assert profiling.counts() == {"docscan.quads": 5, "docscan.quad_fallbacks": 2}
+    assert profiling.counts() == {"docscan.quads": 5, "docscan.quad_fallbacks": 2,
+                                  "contours.hull_native": 2}
     names = [s.name for s in profiling.spans()]
     assert names.count("docscan.fit_quad") == 2 and names.count("docscan.min_area_rect") == 1
 

@@ -4,13 +4,16 @@ values: cv2.findContours RETR_EXTERNAL / contourArea / arcLength /
 approxPolyDP / minAreaRect / boxPoints), carried in the port so that its
 serving path imports nothing of the JAX package. The border following
 uses the C++ tracer of ``tpuimage_torch.native`` when it builds, with the
-numpy implementation below as the value-identical fallback.
+numpy implementation below as the value-identical fallback; so does the
+convex hull of ``min_area_rect``.
 """
 from __future__ import annotations
 
 from typing import List, Tuple
 
 import numpy as np
+
+from tpuimage_torch.runtime.profiling import count
 
 # Moore neighborhood in OpenCV's clockwise order starting East
 _DIRS = np.array([(0, 1), (-1, 1), (-1, 0), (-1, -1),
@@ -256,8 +259,19 @@ def approx_poly_dp(contour: np.ndarray, epsilon: float,
 
 
 def convex_hull(points: np.ndarray) -> np.ndarray:
-    """Andrew monotone chain; returns hull points CCW (y-down image coords)."""
-    pts = np.unique(np.asarray(points, dtype=np.float64).reshape(-1, 2), axis=0)
+    """Andrew monotone chain; returns hull points CCW (y-down image coords).
+
+    Uses the C++ hull (tpuimage_torch.native) when available, counted as
+    ``contours.hull_native``: byte-equal to this numpy body, which stays
+    the fallback and takes non-finite coordinates and negative zeros; on
+    integer contours it first drops the points strictly inside the four
+    extreme points' quadrilateral (of a frame border's ~180k points,
+    5-7k remain to sort)."""
+    pts = np.asarray(points, dtype=np.float64).reshape(-1, 2)
+    native = _convex_hull_native(pts)
+    if native is not None:
+        return native
+    pts = np.unique(pts, axis=0)
     if len(pts) <= 2:
         return pts
     pts = pts[np.lexsort((pts[:, 1], pts[:, 0]))]
@@ -277,6 +291,24 @@ def convex_hull(points: np.ndarray) -> np.ndarray:
     lower = half(pts)
     upper = half(pts[::-1])
     return np.asarray(lower[:-1] + upper[:-1])
+
+
+def _convex_hull_native(pts: np.ndarray):
+    """ctypes path into native/contours.cpp; None if unavailable or the
+    input is one the numpy body takes."""
+    import ctypes
+    from tpuimage_torch.native import load_native
+    lib = load_native()
+    if lib is None or not len(pts):
+        return None
+    pts = np.ascontiguousarray(pts)
+    out = np.empty((2 * len(pts), 2), dtype=np.float64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    k = lib.tpuimage_hull(pts.ctypes.data_as(f64p), len(pts), out.ctypes.data_as(f64p))
+    if k < 0:
+        return None
+    count("contours.hull_native")
+    return out[:k].copy()
 
 
 def min_area_rect(points: np.ndarray) -> Tuple[Tuple[float, float], Tuple[float, float], float]:

@@ -1,5 +1,5 @@
 """Native (C++) host-side helpers, loaded via ctypes: the quad fit's
-contour walk and segment rasterizer (``contours.cpp``), the Haar
+contour walk, segment rasterizer and convex hull (``contours.cpp``), the Haar
 cascade's level evaluator (``haar.cpp``) and the PNG reader's row
 reconstruction (``png.cpp``).
 
@@ -88,6 +88,9 @@ def load_native() -> Optional[ctypes.CDLL]:
             lib.tpuimage_draw_segments.argtypes = [
                 ctypes.POINTER(ctypes.c_double), i64,
                 ctypes.POINTER(ctypes.c_uint8), i64, i64, ctypes.c_double]
+            f64p = ctypes.POINTER(ctypes.c_double)
+            lib.tpuimage_hull.restype = i64
+            lib.tpuimage_hull.argtypes = [f64p, i64, f64p]
             i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
             lib.tpuimage_haar_level.restype = i64
             lib.tpuimage_haar_level.argtypes = [

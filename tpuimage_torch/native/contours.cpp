@@ -1,7 +1,8 @@
 // Native host-side sequential algorithms of DocScanner's quad fit, for
 // tpuimage_torch: a copy of tpuimage/native/contours.cpp (outer-border
 // following over binary edge maps, the cv2.findContours replacement, and
-// the thick-segment rasterizer). Exposed with a plain C ABI, built with
+// the thick-segment rasterizer), and the convex hull of the min-area-rect
+// fallback. Exposed with a plain C ABI, built with
 // g++ at first use and loaded via ctypes (tpuimage_torch.native);
 // detect/contours.py and ops/draw.py keep value-identical numpy fallbacks.
 //
@@ -152,6 +153,101 @@ void tpuimage_draw_segments(const double* segs, int64_t n,
       }
     }
   }
+}
+
+}  // extern "C"
+
+namespace {
+
+struct Pt { double x, y; };
+
+// Below this magnitude on integer-valued coordinates every difference is an
+// integer under 2^26, every product of two differences under 2^52, so each
+// cross product's sign (the prefilter's and the chain's) is exact.
+const double kExactBelow = 33554432.0;  // 2^25
+
+// u0*v1 - u1*v0 with u = a - o, v = p - o: the numpy chain's form and order
+inline double cross(const Pt& o, const Pt& a, const Pt& p) {
+    const double u0 = a.x - o.x, u1 = a.y - o.y;
+    const double v0 = p.x - o.x, v1 = p.y - o.y;
+    return u0 * v1 - u1 * v0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Convex hull of n (x, y) points (float64, row-major), byte-equal to the
+// numpy convex_hull of detect/contours.py: the points sorted by x, then y,
+// without duplicates (np.unique(axis=0)); two or fewer returned as they are;
+// else Andrew's monotone chain popping on cross <= 0, lower chain then upper,
+// each without its last point. Writes the hull's rows to out (capacity 2*n
+// rows) and returns their number, or -1 where a coordinate is non-finite or a
+// negative zero (the numpy body takes those).
+//
+// Where every coordinate is an integer below 2^25 in magnitude, the points
+// strictly inside the quadrilateral of the four extreme points (least and
+// greatest x + y and x - y; Akl-Toussaint) are dropped before the sort: none
+// is a hull vertex, and with exact signs the chain's output depends only on
+// the vertices. A contour's interior thus costs one pass, not a sort.
+int64_t tpuimage_hull(const double* pts, int64_t n, double* out) {
+    bool exact = true;
+    int64_t ia = 0, ib = 0, ic = 0, id = 0;  // min s, max d, max s, min d
+    double smin = 0, smax = 0, dmin = 0, dmax = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        const double x = pts[2 * i], y = pts[2 * i + 1];
+        if (!std::isfinite(x) || !std::isfinite(y)) return -1;
+        if ((x == 0.0 && std::signbit(x)) || (y == 0.0 && std::signbit(y))) return -1;
+        if (!(std::fabs(x) < kExactBelow && std::fabs(y) < kExactBelow
+              && x == std::floor(x) && y == std::floor(y))) exact = false;
+        const double s = x + y, d = x - y;
+        if (i == 0) { smin = smax = s; dmin = dmax = d; continue; }
+        if (s < smin) { smin = s; ia = i; }
+        if (s > smax) { smax = s; ic = i; }
+        if (d > dmax) { dmax = d; ib = i; }
+        if (d < dmin) { dmin = d; id = i; }
+    }
+    std::vector<Pt> v;
+    if (exact && n > 4) {
+        const Pt a{pts[2 * ia], pts[2 * ia + 1]}, b{pts[2 * ib], pts[2 * ib + 1]};
+        const Pt c{pts[2 * ic], pts[2 * ic + 1]}, d{pts[2 * id], pts[2 * id + 1]};
+        for (int64_t i = 0; i < n; ++i) {
+            const Pt p{pts[2 * i], pts[2 * i + 1]};
+            // a, b, c, d turn counter-clockwise for x right, y up: inside
+            // strictly is positive against all four edges
+            if (cross(a, b, p) > 0 && cross(b, c, p) > 0
+                && cross(c, d, p) > 0 && cross(d, a, p) > 0) continue;
+            v.push_back(p);
+        }
+    } else {
+        v.resize(static_cast<size_t>(n));
+        std::memcpy(v.data(), pts, sizeof(double) * 2 * static_cast<size_t>(n));
+    }
+    std::sort(v.begin(), v.end(), [](const Pt& p, const Pt& q) {
+        return p.x < q.x || (p.x == q.x && p.y < q.y);
+    });
+    v.erase(std::unique(v.begin(), v.end(), [](const Pt& p, const Pt& q) {
+        return p.x == q.x && p.y == q.y;
+    }), v.end());
+    const int64_t m = static_cast<int64_t>(v.size());
+    int64_t k = 0;
+    auto emit = [&](const Pt& p) { out[2 * k] = p.x; out[2 * k + 1] = p.y; ++k; };
+    if (m <= 2) {
+        for (const Pt& p : v) emit(p);
+        return k;
+    }
+    std::vector<Pt> h;
+    h.reserve(static_cast<size_t>(m));
+    auto push = [&](const Pt& p) {
+        while (h.size() >= 2 && !(cross(h[h.size() - 2], h.back(), p) > 0)) h.pop_back();
+        h.push_back(p);
+    };
+    for (int64_t i = 0; i < m; ++i) push(v[i]);
+    for (size_t i = 0; i + 1 < h.size(); ++i) emit(h[i]);
+    h.clear();
+    for (int64_t i = m - 1; i >= 0; --i) push(v[i]);
+    for (size_t i = 0; i + 1 < h.size(); ++i) emit(h[i]);
+    return k;
 }
 
 }  // extern "C"

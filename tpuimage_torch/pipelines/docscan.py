@@ -337,7 +337,8 @@ def _quad_from_localize(edges: np.ndarray, segs: np.ndarray, ok: np.ndarray,
         with span("docscan.find_contours"):
             contour_list = cnt.find_external_contours(edges | line_img)
         img_area = shape[0] * shape[1]
-        areas = cnt.contour_areas(contour_list) / max(img_area, 1)
+        raw_areas = cnt.contour_areas(contour_list)
+        areas = raw_areas / max(img_area, 1)
         filtered = [c for c, a in zip(contour_list, areas)
                     if config.min_area_ratio <= a <= config.max_area_ratio]
         with span("docscan.approx_quads"):
@@ -347,7 +348,8 @@ def _quad_from_localize(edges: np.ndarray, segs: np.ndarray, ok: np.ndarray,
                 return None
             count("docscan.quad_fallbacks")
             with span("docscan.min_area_rect"):
-                c = max(contour_list, key=cnt.contour_area)
+                # the first largest, as max(..., key=cnt.contour_area) picks
+                c = contour_list[int(np.argmax(raw_areas))]
                 quad = cnt.box_points(cnt.min_area_rect(c))
         return order_quad_points(quad)
 
