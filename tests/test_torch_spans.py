@@ -1,9 +1,9 @@
 """tpuimage_torch's spans and counters (``runtime.profiling``) on the CPU:
 nothing recorded and no ``record_function`` entered while no profiler
 runs; under a CPU profiler the spans of ``scan_batch``, the post-warp
-called alone, ``landscape_gui`` and ``scan_stream`` with their parents
-and call ids; span times mapped onto the profiler's clock within 0.1 ms;
-the quad fit's counters; the launch counts as a view of the counters;
+called alone, ``landscape_gui``, the night route and ``scan_stream``
+with their parents and call ids; span times mapped onto the profiler's
+clock within 0.1 ms; the quad fit's and the median's counters; the launch counts as a view of the counters;
 the bounded buffer; the Chrome trace of ``stop_trace`` carrying the
 spans."""
 import dataclasses
@@ -21,13 +21,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from tpuimage_torch import synth
 from tpuimage_torch.ops import kernels
 from tpuimage_torch.pipelines import docscan as tdoc
-from tpuimage_torch.pipelines import landscape
+from tpuimage_torch.pipelines import landscape, night
 from tpuimage_torch.runtime import profiling
 
 CFG = dataclasses.replace(tdoc.GUI_DOCUMENT_CONFIG, scale_long=256)
 POST_WARP = {"docscan.pre_deskew", "docscan.deskew_angle", "docscan.rotate",
              "docscan.morph_cleanup"}
 FIT_QUAD = {"docscan.draw_segments", "docscan.find_contours", "docscan.approx_quads"}
+NIGHT = ["night.clahe", "night.lab", "night.lab_to_rgb", "night.median", "night.upload"]
 
 
 @pytest.fixture(autouse=True)
@@ -146,6 +147,47 @@ def test_post_warp_called_alone_is_a_top_level_call():
     assert _children(spans, top) == sorted(POST_WARP)
     assert all(s.call == top.id for s in spans)
     assert _anchor_calls(prof) == [top.id]
+
+
+def test_night_route_spans_under_a_cpu_profiler_and_none_without():
+    one, batch = synth.night_scene(3, 40, 64), np.stack([synth.night_scene(s, 45, 61)
+                                                        for s in (4, 5)])
+    night.night_gui(one, device="cpu")
+    assert profiling.spans() == [] and profiling.dropped() == 0
+    with _cpu_profile() as prof:
+        night.night_gui(one, device="cpu")
+        night.night_rgb(batch, device="cpu")
+    spans = profiling.spans()
+    tops = sorted((s for s in spans if s.parent is None), key=lambda s: s.start_ns)
+    assert [s.name for s in tops] == ["night.gui", "night.gui"]
+    assert all(s.call == s.id for s in tops)
+    assert _anchor_calls(prof) == sorted(s.id for s in tops)
+    byid = {s.id: s for s in spans}
+    for top in tops:
+        assert _children(spans, top) == NIGHT
+    for s in spans:
+        if s.parent is not None:
+            parent = byid[s.parent]
+            assert parent.name == "night.gui" and s.call == parent.call
+            assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+    assert len(spans) == 2 * (1 + len(NIGHT))
+
+
+def test_median_exchanges_counted_per_call():
+    """The transposition network over k*k views: k*k rounds of (k*k - 1) / 2
+    compare-exchanges each, counted with or without a profiler."""
+    from tpuimage_torch.ops.median import median_blur
+
+    night.night_gui(synth.night_scene(6, 24, 32), device="cpu")
+    assert profiling.counts() == {"median.exchanges": 36}
+    night.night_gray(synth.night_scene(7, 24, 32)[..., 0], device="cpu")
+    assert profiling.counts() == {"median.exchanges": 72}
+    gray = torch.from_numpy(synth.night_scene(8, 20, 30)[..., 1])
+    with _cpu_profile():
+        median_blur(gray, 5)
+    assert profiling.counts() == {"median.exchanges": 72 + 25 * 12}
+    median_blur(gray, 1)
+    assert profiling.counts() == {"median.exchanges": 372}
 
 
 def test_scan_stream_tags_worker_phases_with_their_batch(photos):

@@ -1,11 +1,15 @@
 """Exact median filtering, cv2.medianBlur (counterpart of
 ``tpuimage.ops.median``): a replicate border and an odd-even
-transposition sort over the k*k shifted views of each plane."""
+transposition sort over the k*k shifted views of each plane. The counter
+``median.exchanges`` (``runtime.profiling``) counts the compare-exchange
+steps enqueued, each a ``torch.minimum`` and a ``torch.maximum``: n rounds
+of (n - 1) / 2 over n = k*k views, added once a call."""
 from __future__ import annotations
 
 import torch
 
 from tpuimage_torch.core.borders import BORDER_REPLICATE, pad2d
+from tpuimage_torch.runtime.profiling import count
 
 
 def _median_of_views(views):
@@ -15,6 +19,7 @@ def _median_of_views(views):
     for rnd in range(n):
         for i in range(rnd % 2, n - 1, 2):
             v[i], v[i + 1] = torch.minimum(v[i], v[i + 1]), torch.maximum(v[i], v[i + 1])
+    count("median.exchanges", n * (n - 1) // 2)
     return v[n // 2]
 
 

@@ -12,6 +12,9 @@ Leading dims are a batch in place of tpuimage's ``vmap``, so the
 ``rgb_to_lab``, ``hist256`` and ``clahe_apply`` kernels, night_gray the
 last two. Stage keys as tpuimage's: ``original``, ``filtered``,
 ``enhanced``; the stages are tensors on the device the path ran on.
+night_rgb records the spans ``night.gui`` > ``night.upload``,
+``night.median``, ``night.lab``, ``night.clahe``, ``night.lab_to_rgb``
+(``runtime.profiling``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from tpuimage_torch.core.device import as_input
 from tpuimage_torch.ops.color import lab_to_rgb, rgb_to_lab
 from tpuimage_torch.ops.histogram import clahe
 from tpuimage_torch.ops.median import median_blur
+from tpuimage_torch.runtime.profiling import span
 
 CLIP_LIMIT = 2.0
 TILES = 8
@@ -41,12 +45,18 @@ def night_rgb(rgb, device=None) -> Dict[str, torch.Tensor]:
     """uint8 (..., H, W, 3) RGB -> stage dict. The Lab math is
     channel-order-agnostic: asm.py's BGR2LAB on BGR equals rgb_to_lab on
     RGB. Device rule as for :func:`night_gray`."""
-    x = as_input(rgb, device)
-    filtered = median_blur(x, 3, channels_last=True).contiguous()
-    lab = rgb_to_lab(filtered)
-    l_enh = clahe(lab[..., 0], clip_limit=CLIP_LIMIT, tiles_x=TILES, tiles_y=TILES)
-    enhanced = lab_to_rgb(torch.cat([l_enh[..., None], lab[..., 1:]], dim=-1))
-    return {"original": x, "filtered": filtered, "enhanced": enhanced}
+    with span("night.gui"):
+        with span("night.upload"):
+            x = as_input(rgb, device)
+        with span("night.median"):
+            filtered = median_blur(x, 3, channels_last=True).contiguous()
+        with span("night.lab"):
+            lab = rgb_to_lab(filtered)
+        with span("night.clahe"):
+            l_enh = clahe(lab[..., 0], clip_limit=CLIP_LIMIT, tiles_x=TILES, tiles_y=TILES)
+        with span("night.lab_to_rgb"):
+            enhanced = lab_to_rgb(torch.cat([l_enh[..., None], lab[..., 1:]], dim=-1))
+        return {"original": x, "filtered": filtered, "enhanced": enhanced}
 
 
 night_gui = night_rgb
