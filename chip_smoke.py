@@ -55,7 +55,11 @@ Phases (any failure raises and the exit code is non-zero):
    cache, ``rotated_graph_ms``; clahe_apply's and gray_erode3's, the
    latest, likewise in phase 7), and
    hough_votes on random coordinates of the same lengths (its floor
-   without runs of equal bins);
+   without runs of equal bins); Canny's two kernels, which replace no TPU
+   kernel (``canny_pre`` and one hysteresis check), on the deskew's 8
+   weighted pages and on 8 document photos of 1920x1080 (the benchmark's
+   localize shape), exact and timed beside their plain versions, and the
+   whole ``canny`` against the plain versions' loop;
 3. the main path: ``scan_batch`` on 8 synthetic 1600x1200 photos (7
    documents, one with tilted text, and one with no page), with the
    kernels' launch counters reset just before and read just after; its
@@ -219,9 +223,9 @@ Phases (any failure raises and the exit code is non-zero):
    replicate and constant 127.5, card = host.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the per-kernel JSON record (all twelve kernels, each launched on
-some path). nvcc's full output is kept beside the built library in
-tpuimage_torch/_build/.
+holds the per-kernel JSON record (the twelve ported kernels and Canny's
+two, each launched on some path). nvcc's full output is kept beside the
+built library in tpuimage_torch/_build/.
 """
 from __future__ import annotations
 
@@ -242,6 +246,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_REQUESTS = 8
 PHOTO = (1600, 1200)      # height x width: a phone photo held upright
 PAGE = (1200, 849)        # A4 portrait at GUI_DOCUMENT_CONFIG.scale_long
+CELL_PHOTO = (1080, 1920)  # the benchmark's document photos, height x width
 BINARY_TOL = 0.002        # share of binary pixels card and host may differ on
 NIGHT = (853, 1280)       # nightview.png, height x width
 MORPH = (963, 1280)       # sample.jpg, height x width
@@ -1869,6 +1874,52 @@ def _exact_forms_phase(dev, launches: dict) -> None:
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
 
+def _canny_rows(dev, cfg, weighted: torch.Tensor, records: dict) -> None:
+    """canny_pre and one hysteresis check at the cells' shapes: localize's
+    8 photos of 1920x1080 and the deskew's 8 weighted A4 pages, each kernel
+    exact against its plain version and timed; then the whole ``canny``
+    against the plain versions' loop, timed once each way."""
+    from tpuimage_torch import synth
+    from tpuimage_torch.ops import edges, kernels
+    from tpuimage_torch.ops.color import rgb_to_gray
+    photos = np.stack([synth.document_photo(400 + i, *CELL_PHOTO) for i in range(N_REQUESTS)])
+    lo, hi = cfg.canny_low, cfg.canny_high
+    for what, g in (("deskew", weighted),
+                    ("localize", rgb_to_gray(torch.from_numpy(photos).to(dev)))):
+        b, h, w = g.shape
+        n = g.numel()
+        pre = _compare(f"canny_pre ({what}: {b} planes {w}x{h})",
+                       lambda g=g: kernels.canny_pre(g, lo, hi),
+                       lambda g=g: kernels.canny_pre_ref(g, lo, hi),
+                       _bound(3 * n, 40 * n), plain_calls=5)
+        strong, weak = kernels.canny_pre(g, lo, hi)
+        flags = torch.zeros(2, dtype=torch.int32, device=dev)
+        check = _compare(f"canny_hysteresis ({what}: one check of {kernels.HYSTERESIS_STEPS} "
+                         f"steps, {b} planes {w}x{h})",
+                         lambda: kernels.hysteresis_check(strong, weak, flags, 0).view(torch.bool),
+                         lambda: kernels.hysteresis_check_ref(strong, weak),
+                         _bound(3 * n, 8 * 14 * n / 32), plain_calls=5)
+        if what == "deskew":
+            records["canny_pre"], records["canny_hysteresis"] = pre, check
+        else:
+            _sub_record(records["canny_pre"], what, pre)
+            _sub_record(records["canny_hysteresis"], what, check)
+
+        def plain_canny(g=g):
+            s, wk = kernels.canny_pre_ref(g, lo, hi)
+            for _ in range(h + w):
+                new = kernels.hysteresis_check_ref(s, wk)
+                if not bool((new != s).any()):
+                    break
+                s = new
+            return s.to(torch.uint8) * 255
+        _exact(f"canny ({what})", lambda g=g: edges.canny(g, lo, hi), plain_canny)
+        ms = _cuda_ms(lambda g=g: edges.canny(g, lo, hi), reps=5, calls=5)
+        print(f"canny ({what}: {b} planes {w}x{h}): {ms:.4f} ms a call (both kernels and "
+              f"the flag reads), the plain versions' loop "
+              f"{_cuda_ms(plain_canny, reps=3, calls=2):.4f} ms")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1937,6 +1988,7 @@ def main() -> int:
               for i in range(N_REQUESTS)]
     photo_edges = edges.canny(rgb_to_gray(torch.from_numpy(np.stack(inputs)).to(dev)),
                               cfg.canny_low, cfg.canny_high)
+    _canny_rows(dev, cfg, weighted, records)
     cos_np, sin_np = hough.hough_tables()
     cos_t, sin_t = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
     hough_recs = []
@@ -3107,7 +3159,9 @@ def main() -> int:
                "bilateral": ("tpuimage_torch/csrc/bilateral.cu",
                              "tpuimage/ops/pallas_kernels.py:89"),
                "rank_extract": ("tpuimage_torch/csrc/rank_extract.cu",
-                                "tpuimage/ops/pallas_kernels.py:825")}
+                                "tpuimage/ops/pallas_kernels.py:825"),
+               "canny_pre": ("tpuimage_torch/csrc/canny.cu", None),
+               "canny_hysteresis": ("tpuimage_torch/csrc/canny.cu", None)}
     kernel_line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **records[name]}

@@ -7,6 +7,8 @@ machine that has only torch (``tests/conftest.py`` imports jax):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1634,3 +1636,206 @@ def test_xla_sum_f32_card_equals_host(cuda_device, shape):
     x = torch.from_numpy(np.random.default_rng(shape[-1]).integers(200, 256, shape,
                                                                   dtype=np.uint8))
     assert torch.equal(xla_sum_f32(x.to(cuda_device)).cpu(), xla_sum_f32(x))
+
+
+# ---------------------------------------------------------------------------
+# Canny: canny_pre and the hysteresis check against their plain versions
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _canny_planes(kind, shape, seed):
+    """(B, H, W) uint8: random bytes, a binary 0/255 page (the deskew's
+    input is one), or the gray of document photos / A4 pages."""
+    rng = np.random.default_rng(seed)
+    b, h, w = shape
+    if kind == "random":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if kind == "binary":
+        return ((rng.random(shape) < 0.3) * 255).astype(np.uint8)
+    make = synth.document_photo if kind == "photo" else synth.page
+    rgb = np.stack([make(seed + i, h, w) for i in range(b)])
+    return color.rgb_to_gray(torch.from_numpy(rgb)).numpy()
+
+
+_CANNY_THRESHOLDS = [(50, 150, False), (30, 100, False), (50, 150, True), (150, 50, False),
+                     (20.7, 99.5, True), (20.7, 99.5, False), (0.5, 1.2, True), (-3, 0, False)]
+
+
+def _canny_pre_exact(cuda_device, x, low, high, l2, row_valid=None):
+    out = _count("canny_pre", lambda: kernels.canny_pre(x.to(cuda_device), low, high, l2,
+                                                        row_valid))
+    ref = kernels.canny_pre_ref(x, low, high, l2, row_valid)
+    for o, r, what in zip(out, ref, ("strong", "weak")):
+        assert o.dtype == torch.bool and torch.equal(o.cpu(), r), (what, low, high, l2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [("random", (2, 97, 131)), ("binary", (2, 1200, 849)),
+                                        ("photo", (2, 1080, 1920)), ("page", (2, 1200, 849))])
+@pytest.mark.parametrize("low,high,l2", _CANNY_THRESHOLDS)
+def test_canny_pre_kernel_on_card(cuda_device, kind, shape, low, high, l2):
+    """canny_pre on random bytes, binary pages, document photos at the
+    localize's 1920x1080 and pages at the deskew's 849x1200; L1 and L2,
+    low > high, thresholds that are not integers (truncated for L1, their
+    squares rounded to f32 for L2) and negative ones: equal to the plain
+    version's maps."""
+    x = torch.from_numpy(_canny_planes(kind, shape, shape[1]))
+    _canny_pre_exact(cuda_device, x, low, high, l2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 1, 70), (2, 70, 1), (1, 2, 2), (3, 3, 3),
+                                   (2, 33, 65), (1, 31, 63), (2, 65, 129), (1, 49, 961)])
+@pytest.mark.parametrize("l2", [False, True])
+def test_canny_pre_kernel_at_edge_shapes(cuda_device, shape, l2):
+    """One pixel, one row, one column, 2x2, 3x3 (reflect-101 of one and
+    two pixels) and planes one past or one short of the 64 x 32 tile."""
+    x = torch.from_numpy(_canny_planes("random", shape, sum(shape)))
+    _canny_pre_exact(cuda_device, x, 40, 120, l2)
+    _canny_pre_exact(cuda_device, x // 32, 1, 3, l2)      # low contrast: most pixels candidates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2", [False, True])
+def test_canny_pre_kernel_with_row_valid(cuda_device, l2):
+    """row_valid as the H-sharded post-warp passes it (halo rows outside
+    the image invalid) and scattered invalid rows."""
+    x = torch.from_numpy(_canny_planes("page", (2, 300, 849), 4))
+    edge_rows = np.ones(300, bool)
+    edge_rows[:3] = edge_rows[-3:] = False
+    scattered = np.random.default_rng(2).random(300) < 0.5
+    for valid in (edge_rows, scattered, torch.from_numpy(scattered)):
+        _canny_pre_exact(cuda_device, x, 30, 100, l2, valid)
+
+
+def _check_flags(flags, slot, changed):
+    f = flags.cpu().tolist()
+    assert f[1 - slot] == 0 and f[slot] == int(changed), (f, slot, changed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in synth.hysteresis_stress_maps()])
+def test_hysteresis_check_kernel_on_stress_maps(cuda_device, case):
+    """One check from the seeds, from a 0/255 map and from the map after 2
+    checks (bool and uint8 input, both slots, flags left over from before)
+    against the plain version; then the growth after 1, 2 and 7 checks
+    (``_hysteresis``'s max_iters) equal to the plain loop's, and at the
+    fixpoint equal to the 8-connected components of strong | weak that
+    hold a strong pixel."""
+    import scipy.ndimage
+    from tpuimage_torch.ops import edges as edgeops
+    _, strong_np, weak_np = next(c for c in synth.hysteresis_stress_maps() if c[0] == case)
+    strong, weak = torch.from_numpy(strong_np), torch.from_numpy(weak_np)
+    s_d, w_d = strong.to(cuda_device), weak.to(cuda_device)
+    ref = strong
+    for i, (s_in, on) in enumerate(((s_d, 1), (s_d.to(torch.uint8) * 255, 255), (None, 1))):
+        if s_in is None:
+            ref = kernels.hysteresis_check_ref(kernels.hysteresis_check_ref(strong, weak), weak)
+            s_in = ref.to(cuda_device)
+        slot = i % 2
+        flags = torch.tensor([7, 7], dtype=torch.int32, device=cuda_device)
+        flags[slot] = 0
+        out = _count("canny_hysteresis",
+                     lambda: kernels.hysteresis_check(s_in, w_d, flags, slot, on))
+        want = kernels.hysteresis_check_ref(ref, weak)
+        assert out.dtype == torch.uint8
+        assert torch.equal(out.cpu(), want.to(torch.uint8) * on), (case, i)
+        _check_flags(flags, slot, bool((want != ref).any()))
+    plain = strong
+    for n in range(1, 8):
+        plain = kernels.hysteresis_check_ref(plain, weak)
+        if n in (1, 2, 7):
+            assert torch.equal(edgeops._hysteresis(s_d, w_d, n).cpu(), plain), (case, n)
+    labels, _ = scipy.ndimage.label(strong_np | weak_np, structure=np.ones((3, 3, 3)) *
+                                    np.array([0, 1, 0])[:, None, None])
+    keep = np.zeros(labels.max() + 1, bool)
+    keep[np.unique(labels[strong_np])] = True
+    keep[0] = False
+    fix = edgeops._hysteresis(s_d, w_d, 10 ** 6)
+    assert torch.equal(fix.cpu(), torch.from_numpy(keep[labels])), case
+
+
+@pytest.mark.cuda
+def test_canny_hysteresis_checks_and_max_iters_on_card(cuda_device):
+    """canny on a weak spiral's image: the card's checks, counted, equal
+    the host's, and a max_hysteresis_iters cap stops both at the same
+    partial map."""
+    from tpuimage_torch.ops import edges as edgeops
+    from tpuimage_torch.runtime import profiling
+    _, strong, weak = next(c for c in synth.hysteresis_stress_maps() if c[0] == "spiral")
+    s_d, w_d = torch.from_numpy(strong).to(cuda_device), torch.from_numpy(weak).to(cuda_device)
+    checks = []
+    for s, w in ((s_d, w_d), (torch.from_numpy(strong), torch.from_numpy(weak))):
+        before = profiling.counts().get("canny.hysteresis_checks", 0)
+        out = edgeops._hysteresis(s, w, 10 ** 6)
+        checks.append(profiling.counts()["canny.hysteresis_checks"] - before)
+        assert torch.equal(out.cpu(), torch.from_numpy(strong | weak))
+    assert checks[0] == checks[1] > 100, checks
+    for cap in (1, 3, 40):
+        card = edgeops._hysteresis(s_d, w_d, cap).cpu()
+        assert torch.equal(card, edgeops._hysteresis(torch.from_numpy(strong),
+                                                     torch.from_numpy(weak), cap))
+        assert not torch.equal(card, torch.from_numpy(strong | weak))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,low,high", [("photo", (8, 1080, 1920), 30, 100),
+                                                 ("page", (3, 1200, 849), 50, 150),
+                                                 ("binary", (2, 300, 849), 30, 100)])
+@pytest.mark.parametrize("l2", [False, True])
+def test_canny_on_card_equals_host(cuda_device, kind, shape, low, high, l2):
+    """canny and canny_batch end to end, one canny_pre launch and one
+    hysteresis launch a check: card = host, byte for byte."""
+    from tpuimage_torch.ops import edges as edgeops
+    x = torch.from_numpy(_canny_planes(kind, shape, 11))
+    kernels.reset_launch_counts()
+    card = edgeops.canny_batch(x.to(cuda_device), low, high, l2).cpu()
+    counts = kernels.launch_counts()
+    assert counts["canny_pre"] == 1 and counts["canny_hysteresis"] >= 1, counts
+    assert card.dtype == torch.uint8 and torch.equal(card, edgeops.canny(x, low, high, l2))
+    one = edgeops.canny(x[0].to(cuda_device), low, high, l2)
+    assert one.shape == x.shape[1:] and torch.equal(one.cpu(), card[0])
+
+
+@pytest.mark.cuda
+def test_canny_docscan_uses_on_card(cuda_device):
+    """DocScanner's two Canny uses: localize's edges of 1920x1080 photos
+    (its segments' f32 endpoints are not held here) and the deskew's angle
+    of weighted A4 pages, card = host, with both kernels launched on each
+    route."""
+    from tpuimage_torch.pipelines import docscan
+    cfg = docscan.GUI_DOCUMENT_CONFIG
+    photos = torch.from_numpy(np.stack([synth.document_photo(60 + i, 1080, 1920)
+                                        for i in range(2)]))
+    kernels.reset_launch_counts()
+    card = docscan._localize_device_batch(photos.to(cuda_device), cfg.canny_low, cfg.canny_high)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["canny_pre"] == 1 and counts["canny_hysteresis"] >= 1, counts
+    host = docscan._localize_device_batch(photos, cfg.canny_low, cfg.canny_high)
+    assert card[0].dtype == torch.uint8 and torch.equal(card[0].cpu(), host[0])
+    pages = torch.from_numpy(np.stack([synth.page(70 + i, 1200, 849, tilt_deg=2.0 * i)
+                                       for i in range(2)]))
+    weighted = docscan._pre_deskew_stages(pages, cfg)["weighted"]
+    kernels.reset_launch_counts()
+    card = docscan._deskew_angle(weighted.to(cuda_device), cfg.canny_low, cfg.canny_high,
+                                 cfg.max_rotate, cfg.deskew_max_edges)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["canny_pre"] == 1 and counts["canny_hysteresis"] >= 1, counts
+    for c, h in zip(card, docscan._deskew_angle(weighted, cfg.canny_low, cfg.canny_high,
+                                                cfg.max_rotate, cfg.deskew_max_edges)):
+        assert torch.equal(c.cpu(), h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bool])
+def test_canny_refuses_planes_not_uint8_on_card(cuda_device, dtype):
+    """cv2.Canny takes 8-bit planes only: a CUDA tensor of another type
+    raises, with no fallback."""
+    from tpuimage_torch.ops import edges as edgeops
+    x = torch.zeros((1, 16, 16), dtype=dtype, device=cuda_device)
+    with pytest.raises(TypeError):
+        edgeops.canny(x, 50, 150)
+    with pytest.raises(TypeError):
+        kernels.canny_pre(x, 50, 150)

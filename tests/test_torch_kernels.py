@@ -125,12 +125,15 @@ def test_wrappers_check_inputs_and_count_only_launches():
     kernels.bilateral(rgb, taps, sw, lut3, 0)
     rank = torch.zeros((6, 2), dtype=torch.int32)
     kernels.rank_extract(rank, rank > 0, 3)
+    strong, weak = kernels.canny_pre(planes, 30, 100)
+    kernels.hysteresis_check(strong, weak, torch.zeros(2, dtype=torch.int32), 0)
     assert kernels.launch_counts() == {"hist256": 0, "hough_votes": 0, "rgb_to_lab": 0,
                                        "clahe_apply": 0, "gray_erode3": 0,
                                        "binary_close3": 0, "gaussian_blur_u8": 0,
                                        "gauss_chain": 0, "blackhat_rect": 0,
                                        "inkmask_weighted": 0, "bilateral": 0,
-                                       "rank_extract": 0}
+                                       "rank_extract": 0, "canny_pre": 0,
+                                       "canny_hysteresis": 0}
     # bilateral: dtype, rank, channels, contiguity, table sizes
     with pytest.raises(TypeError):
         kernels.bilateral(planes.to(torch.int32), taps, sw, lut3, 0)

@@ -93,8 +93,9 @@ def test_no_profiler_no_record_and_no_record_function(monkeypatch, photos):
     landscape.landscape_gui(synth.landscape_scene(1, 40, 60), device="cpu")
     assert profiling.spans() == [] and profiling.dropped() == 0
     assert entered == []
-    # the counters are always on
-    assert profiling.counts() == {"docscan.quads": 1}
+    # the counters are always on: one quad, and Canny's hysteresis checks on
+    # localize's and the deskew's edge maps
+    assert profiling.counts() == {"docscan.quads": 1, "canny.hysteresis_checks": 3}
 
 
 def test_scan_batch_and_landscape_spans_under_a_cpu_profiler(photos):
@@ -279,7 +280,8 @@ def test_quad_counters_count_a_clean_quad_and_a_fallback():
 def test_launch_counts_are_a_view_of_the_counters_and_reset_clears_spans():
     want = dict.fromkeys(["hist256", "hough_votes", "rgb_to_lab", "clahe_apply",
                           "gray_erode3", "binary_close3", "gaussian_blur_u8", "gauss_chain",
-                          "blackhat_rect", "inkmask_weighted", "bilateral", "rank_extract"], 0)
+                          "blackhat_rect", "inkmask_weighted", "bilateral", "rank_extract",
+                          "canny_pre", "canny_hysteresis"], 0)
     assert kernels.launch_counts() == want
     kernels._count("hist256")
     kernels._count("hist256")

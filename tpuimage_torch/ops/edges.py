@@ -10,6 +10,11 @@ masked 3x3 growth steps per convergence check, at most ``h + w`` checks
 unless asked otherwise, like tpuimage's CPU schedule. Growth is
 monotone, so the batch runs until its slowest plane converges and each
 plane's result is its own fixpoint.
+
+On a card Canny is two hand-written kernels (``ops/kernels.py``,
+``csrc/canny.cu``): ``canny_pre`` in one pass, then one launch and one
+flag read a convergence check, counted as ``canny.hysteresis_checks``.
+Their plain versions, the eager form, run on the CPU.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from tpuimage_torch.core.borders import BORDER_REFLECT_101, pad2d
 from tpuimage_torch.core.dtypes import f32
+from tpuimage_torch.runtime import profiling
 
 _SOBEL_3 = {
     # (deriv order dx, dy) -> 3x3 kernel (correlation form, like cv2)
@@ -35,10 +41,6 @@ _SCHARR = {
 
 _LAPLACIAN = {1: np.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]]),
               3: np.array([[2, 0, 2], [0, -8, 0], [2, 0, 2]])}
-
-_TG22 = 13573  # cv2: tan(22.5 deg) * 2^15, rounded
-_STEPS_PER_CHECK = 8
-
 
 def _conv3x3_f32(img: torch.Tensor, k: np.ndarray) -> torch.Tensor:
     """Exact integer 3x3 correlation of each (H, W) plane by shifted adds
@@ -93,54 +95,19 @@ def laplacian_variance(gray: torch.Tensor) -> torch.Tensor:
     return lap.var(dim=(-2, -1), unbiased=False)
 
 
-def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """out[..., y, x] = x[..., y+dy, x+dx], out of range -> 0."""
-    h, w = x.shape[-2], x.shape[-1]
-    p = torch.nn.functional.pad(x, (1, 1, 1, 1))
-    return p[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
-
-
 def canny_pre(gray: torch.Tensor, low: float, high: float, l2_gradient: bool = False,
               row_valid=None):
     """Sobel3 -> L1 (or, with ``l2_gradient``, squared L2) magnitude ->
     sector NMS -> double threshold. Returns the (strong, weak) bool maps of
     each plane. ``row_valid`` (H,) bool zeroes the magnitude of the rows
     outside the image (a halo'd block's), as the unsharded NMS sees 0
-    there."""
-    if low > high:
-        low, high = high, low
-    dx = sobel(gray, 1, 0)
-    dy = sobel(gray, 0, 1)
-    if l2_gradient:
-        mag = dx * dx + dy * dy
-        low_t, high_t = float(low) ** 2, float(high) ** 2
-    else:
-        mag = torch.abs(dx) + torch.abs(dy)
-        low_t, high_t = float(int(low)), float(int(high))  # cv2 truncates for L1
-    if row_valid is not None:
-        valid = torch.as_tensor(row_valid, dtype=torch.bool, device=mag.device)
-        mag = torch.where(valid[:, None], mag, torch.zeros_like(mag))
-
-    xs = torch.abs(dx)
-    ys = torch.abs(dy) * 32768.0
-    tg22x = xs * float(_TG22)
-    tg67x = tg22x + xs * 65536.0
-
-    m = mag
-    left, right = _shift2d(m, 0, -1), _shift2d(m, 0, 1)
-    up, down = _shift2d(m, -1, 0), _shift2d(m, 1, 0)
-    same_sign = (dx * dy) >= 0
-    diag1 = torch.where(same_sign, _shift2d(m, -1, -1), _shift2d(m, -1, 1))
-    diag2 = torch.where(same_sign, _shift2d(m, 1, 1), _shift2d(m, 1, -1))
-
-    horiz = ys < tg22x
-    vert = ys > tg67x
-    keep = torch.where(
-        horiz, (m > left) & (m >= right),
-        torch.where(vert, (m > up) & (m >= down), (m > diag1) & (m >= diag2)))
-    cand = keep & (m > low_t)
-    strong = cand & (m > high_t)
-    return strong, cand & ~strong
+    there. On a card one launch of ``kernels.canny_pre`` (uint8 planes
+    only); on the CPU its plain version."""
+    from tpuimage_torch.ops import kernels   # kernels imports this module
+    h, w = gray.shape[-2], gray.shape[-1]
+    strong, weak = kernels.canny_pre(gray.reshape(-1, h, w).contiguous(), low, high,
+                                     l2_gradient, row_valid)
+    return strong.reshape(gray.shape), weak.reshape(gray.shape)
 
 
 def dilate8_bool(b: torch.Tensor) -> torch.Tensor:
@@ -154,17 +121,31 @@ def dilate8_bool(b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _hysteresis(strong: torch.Tensor, weak: torch.Tensor, max_iters: int) -> torch.Tensor:
-    s = strong
-    for _ in range(max_iters):
-        new = s
-        for _ in range(_STEPS_PER_CHECK):
-            new = new | (weak & dilate8_bool(new))
-        changed = bool((new != s).any())
-        s = new
-        if not changed:
+def _grow(strong: torch.Tensor, weak: torch.Tensor, max_iters: int, on: int) -> torch.Tensor:
+    """The strong maps grown through the weak ones for at most ``max_iters``
+    convergence checks (``kernels.hysteresis_check``: one launch and one
+    flag read a check), as uint8 0 / ``on`` of the same shape."""
+    from tpuimage_torch.ops import kernels   # kernels imports this module
+    h, w = strong.shape[-2], strong.shape[-1]
+    s = strong.reshape(-1, h, w).contiguous()
+    wk = weak.reshape(-1, h, w).contiguous()
+    if max_iters <= 0 or s.numel() == 0:
+        return (s.to(torch.uint8) * on).reshape(strong.shape)
+    flags = torch.zeros(2, dtype=torch.int32, device=s.device)
+    checks = 0
+    for i in range(max_iters):
+        s = kernels.hysteresis_check(s, wk, flags, i % 2, on)
+        checks += 1
+        if not flags[i % 2].item():
             break
-    return s
+    profiling.count("canny.hysteresis_checks", checks)
+    return s.reshape(strong.shape)
+
+
+def _hysteresis(strong: torch.Tensor, weak: torch.Tensor, max_iters: int) -> torch.Tensor:
+    if max_iters <= 0:
+        return strong
+    return _grow(strong, weak, max_iters, 1).view(torch.bool)
 
 
 def canny(gray: torch.Tensor, low: float, high: float, l2_gradient: bool = False,
@@ -174,8 +155,7 @@ def canny(gray: torch.Tensor, low: float, high: float, l2_gradient: bool = False
     ``max_hysteresis_iters`` convergence checks (default h + w)."""
     strong, weak = canny_pre(gray, low, high, l2_gradient)
     h, w = gray.shape[-2], gray.shape[-1]
-    strong = _hysteresis(strong, weak, max_hysteresis_iters or (h + w))
-    return strong.to(torch.uint8) * 255
+    return _grow(strong, weak, max_hysteresis_iters or (h + w), 255)
 
 
 def canny_batch(grays: torch.Tensor, low: float, high: float, l2_gradient: bool = False,

@@ -35,6 +35,7 @@ import torch
 from tpuimage_torch.core.borders import pad2d
 from tpuimage_torch.core.dtypes import descale, saturate_u8
 from tpuimage_torch.ops.arith import divide_u8, max_u8, subtract_u8
+from tpuimage_torch.ops.edges import dilate8_bool, sobel
 from tpuimage_torch.ops.filters import (gaussian_blur_u8_plain, gaussian_kernel_q8,
                                         get_gaussian_kernel)
 from tpuimage_torch.ops.morphology import (MORPH_RECT, dilate, erode, morph_blackhat_plain,
@@ -60,7 +61,7 @@ build_log = ""
 # kernels from its worker threads too)
 _KERNELS = ("hist256", "hough_votes", "rgb_to_lab", "clahe_apply", "gray_erode3",
             "binary_close3", "gaussian_blur_u8", "gauss_chain", "blackhat_rect",
-            "inkmask_weighted", "bilateral", "rank_extract")
+            "inkmask_weighted", "bilateral", "rank_extract", "canny_pre", "canny_hysteresis")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -186,6 +187,11 @@ def _load() -> ctypes.CDLL:
             lib.tpuimage_bilateral.restype = i
             lib.tpuimage_rank_extract.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll, ll, ll, i, p]
             lib.tpuimage_rank_extract.restype = i
+            f = ctypes.c_float
+            lib.tpuimage_canny_pre.argtypes = [p, p, p, p, i, i, i, i, f, f, p]
+            lib.tpuimage_canny_pre.restype = i
+            lib.tpuimage_canny_hysteresis.argtypes = [p, p, p, p, i, i, i, i, i, p]
+            lib.tpuimage_canny_hysteresis.restype = i
             _lib = lib
     return _lib
 
@@ -887,3 +893,150 @@ def rank_extract(rank: torch.Tensor, mask: torch.Tensor, kk: int) -> torch.Tenso
     _raise_on(rc, "rank_extract")
     _count("rank_extract")
     return ci
+
+
+# ---------------------------------------------------------------------------
+# Canny on (B, H, W) planes (csrc/canny.cu): canny_pre, the edge candidates
+# of uint8 planes as strong and weak bool maps; hysteresis_check, one
+# convergence check of the hysteresis. Both replace no TPU kernel.
+# ---------------------------------------------------------------------------
+
+_TG22 = 13573            # cv2: tan(22.5 deg) * 2^15, rounded
+HYSTERESIS_STEPS = 8     # growth steps a convergence check
+
+
+def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[..., y, x] = x[..., y+dy, x+dx], out of range -> 0."""
+    h, w = x.shape[-2], x.shape[-1]
+    p = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    return p[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+
+def _canny_thresholds(low: float, high: float, l2_gradient: bool):
+    """The thresholds the magnitude is compared with, ordered: cv2 truncates
+    them for L1 and squares them for the squared L2 magnitude."""
+    if low > high:
+        low, high = high, low
+    if l2_gradient:
+        return float(low) ** 2, float(high) ** 2
+    return float(int(low)), float(int(high))
+
+
+def canny_pre_ref(gray: torch.Tensor, low: float, high: float, l2_gradient: bool = False,
+                  row_valid=None):
+    """Plain PyTorch Sobel3 (reflect-101) -> L1 (or, with ``l2_gradient``,
+    squared L2) magnitude -> sector NMS (TG22 in Q15, zero-filled shifts,
+    every compare in f32) -> double threshold, on each (H, W) plane of a
+    (..., H, W) tensor. Returns the (strong, weak) bool maps. ``row_valid``
+    (H,) bool zeroes the magnitude of the rows outside the image (a halo'd
+    block's), as the unsharded NMS sees 0 there."""
+    low_t, high_t = _canny_thresholds(low, high, l2_gradient)
+    dx = sobel(gray, 1, 0)
+    dy = sobel(gray, 0, 1)
+    mag = dx * dx + dy * dy if l2_gradient else torch.abs(dx) + torch.abs(dy)
+    if row_valid is not None:
+        valid = torch.as_tensor(row_valid, dtype=torch.bool, device=mag.device)
+        mag = torch.where(valid[:, None], mag, torch.zeros_like(mag))
+
+    xs = torch.abs(dx)
+    ys = torch.abs(dy) * 32768.0
+    tg22x = xs * float(_TG22)
+    tg67x = tg22x + xs * 65536.0
+
+    m = mag
+    left, right = _shift2d(m, 0, -1), _shift2d(m, 0, 1)
+    up, down = _shift2d(m, -1, 0), _shift2d(m, 1, 0)
+    same_sign = (dx * dy) >= 0
+    diag1 = torch.where(same_sign, _shift2d(m, -1, -1), _shift2d(m, -1, 1))
+    diag2 = torch.where(same_sign, _shift2d(m, 1, 1), _shift2d(m, 1, -1))
+
+    horiz = ys < tg22x
+    vert = ys > tg67x
+    keep = torch.where(
+        horiz, (m > left) & (m >= right),
+        torch.where(vert, (m > up) & (m >= down), (m > diag1) & (m >= diag2)))
+    cand = keep & (m > low_t)
+    strong = cand & (m > high_t)
+    return strong, cand & ~strong
+
+
+def canny_pre(gray: torch.Tensor, low: float, high: float, l2_gradient: bool = False,
+              row_valid=None):
+    """Canny's edge candidates, :func:`canny_pre_ref`'s function: (B, H, W)
+    uint8 -> the (strong, weak) (B, H, W) bool maps, in one launch that
+    reads each byte once. ``row_valid``: None or (H,) bool. A CPU tensor
+    (of any real dtype and leading dims) runs the plain version; a CUDA
+    tensor must be uint8, as cv2.Canny takes only 8-bit planes."""
+    dev = _device_of(gray)
+    if dev.type == "cpu":
+        return canny_pre_ref(gray, low, high, l2_gradient, row_valid)
+    _check(gray, "canny_pre", torch.uint8, 3)
+    b, h, w = gray.shape
+    rv = None
+    if row_valid is not None:
+        rv = torch.as_tensor(row_valid, dtype=torch.bool, device=dev).contiguous()
+        if rv.shape != (h,):
+            raise ValueError(f"canny_pre: row_valid {tuple(rv.shape)} for {h} rows")
+    strong = torch.empty((b, h, w), dtype=torch.bool, device=dev)   # every pixel written
+    weak = torch.empty_like(strong)
+    if strong.numel() == 0:
+        return strong, weak
+    # the f32 values the plain version's compares round the thresholds to
+    low_t, high_t = (float(np.float32(t)) for t in _canny_thresholds(low, high, l2_gradient))
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_canny_pre(gray.data_ptr(), None if rv is None else rv.data_ptr(),
+                                    strong.data_ptr(), weak.data_ptr(), b, h, w,
+                                    int(bool(l2_gradient)), low_t, high_t, _stream(dev))
+    _raise_on(rc, "canny_pre")
+    _count("canny_pre")
+    return strong, weak
+
+
+def hysteresis_check_ref(s: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch convergence check of Canny's hysteresis:
+    ``HYSTERESIS_STEPS`` synchronous steps ``new = new | (weak &
+    dilate8(new))`` of bool maps, neighbours outside each plane unset."""
+    new = s
+    for _ in range(HYSTERESIS_STEPS):
+        new = new | (weak & dilate8_bool(new))
+    return new
+
+
+def hysteresis_check(s: torch.Tensor, weak: torch.Tensor, flags: torch.Tensor, slot: int,
+                     on: int = 1) -> torch.Tensor:
+    """One convergence check of the hysteresis (:func:`hysteresis_check_ref`)
+    in one launch. s: (B, H, W) bool or uint8, set where nonzero; weak:
+    (B, H, W) bool; flags: (2,) int32 on their device. Returns the grown
+    maps as (B, H, W) uint8 0 / ``on``; sets ``flags[slot]`` to 1 where
+    the check changed any pixel and ``flags[1 - slot]`` to 0, so a loop
+    that alternates the slots zeroes the flags once and reads one a check."""
+    if s.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"hysteresis_check: s must be bool or uint8, got {s.dtype}")
+    _check(s, "s", s.dtype, 3)
+    _check(weak, "weak", torch.bool, 3)
+    _check(flags, "flags", torch.int32, 1)
+    if weak.shape != s.shape or flags.shape[0] != 2 or slot not in (0, 1) \
+            or not 0 <= on <= 255:
+        raise ValueError(f"hysteresis_check: s {tuple(s.shape)}, weak {tuple(weak.shape)}, "
+                         f"flags {tuple(flags.shape)}, slot {slot}, on {on}")
+    dev = _device_of(s, weak, flags)
+    if dev.type == "cpu":
+        cur = s if s.dtype == torch.bool else s != 0
+        new = hysteresis_check_ref(cur, weak)
+        flags[1 - slot] = 0
+        if bool((new != cur).any()):
+            flags[slot] = 1
+        return new.to(torch.uint8) * on
+    out = torch.empty(s.shape, dtype=torch.uint8, device=dev)   # every pixel written
+    if out.numel() == 0:
+        flags[1 - slot] = 0
+        return out
+    b, h, w = s.shape
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.tpuimage_canny_hysteresis(s.data_ptr(), weak.data_ptr(), out.data_ptr(),
+                                           flags.data_ptr(), slot, b, h, w, on, _stream(dev))
+    _raise_on(rc, "canny_hysteresis")
+    _count("canny_hysteresis")
+    return out

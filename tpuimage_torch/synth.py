@@ -578,3 +578,59 @@ def blur_stress_planes(shape, seed: int = 0) -> np.ndarray:
         yy, xx = np.mgrid[:shape[1], :shape[2]]
         x[1] = 100 + (yy + xx) % 2
     return x
+
+
+def _spiral_path(h: int, w: int) -> np.ndarray:
+    """(h, w) bool: a 1-pixel path that spirals inward from (0, 0), its
+    rings one pixel apart, so that 8-connected growth from its start
+    follows it pixel by pixel."""
+    m = np.zeros((h, w), bool)
+    y = x = 0
+    dy, dx = 0, 1
+    m[0, 0] = True
+
+    def free(y, x, dy, dx):
+        ny, nx, fy, fx = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+        return (0 <= ny < h and 0 <= nx < w and not m[ny, nx]
+                and not (0 <= fy < h and 0 <= fx < w and m[fy, fx]))
+
+    while True:
+        if not free(y, x, dy, dx):
+            dy, dx = dx, -dy
+            if not free(y, x, dy, dx):
+                return m
+        y, x = y + dy, x + dx
+        m[y, x] = True
+
+
+def hysteresis_stress_maps(seed: int = 0):
+    """(strong, weak) (B, H, W) bool maps that stress a Canny hysteresis
+    kernel, as (name, strong, weak): weak spirals seeded at their start
+    (hundreds of 8-step checks to the fixpoint), one inside a plane and
+    one crossing many 48-row and 960-column tiles; a weak band wider than
+    any tile, seeded at one corner, beside a plane with no seed; random
+    maps with strong pixels among dense weak ones (fast growth in every
+    direction); and shapes of one row, one column, 2x2 and 3x3."""
+    rng = np.random.default_rng(seed)
+
+    def seeded(path):
+        strong = np.zeros_like(path)
+        strong[..., 0, 0] = path[..., 0, 0]
+        return strong, path & ~strong
+
+    yield ("spiral", *seeded(_spiral_path(61, 77)[None]))
+    yield ("spiral_across_tiles", *seeded(_spiral_path(150, 2000)[None]))
+    band = np.zeros((2, 70, 2100), bool)
+    band[:, 5:60, :] = rng.random((2, 55, 2100)) < 0.75
+    band[:, 5:60, 0] = True
+    strong = np.zeros_like(band)
+    strong[0, 5, 0] = True
+    yield ("band_seeded_at_a_corner", strong, band & ~strong)
+    dense = rng.random((3, 131, 997)) < 0.6
+    strong = dense & (rng.random(dense.shape) < 0.002)
+    yield ("dense_random", strong, dense & ~strong)
+    for name, shape in (("one_row", (2, 1, 300)), ("one_column", (2, 300, 1)),
+                        ("two_by_two", (3, 2, 2)), ("three_by_three", (3, 3, 3))):
+        weak = rng.random(shape) < 0.8
+        strong = weak & (rng.random(shape) < 0.1)
+        yield (name, strong, weak & ~strong)
