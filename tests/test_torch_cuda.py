@@ -158,6 +158,17 @@ def test_rgb_to_lab_kernel_on_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
+def test_lab_to_rgb_l_equals_lab_to_rgb_on_card(cuda_device):
+    """tests/test_torch_ops.py's inputs on the card: ~1M seeded Lab triples
+    and the 0/255 corners, L and a, b as strided views of one image."""
+    corners = np.array(np.meshgrid(*[[0, 255]] * 3, indexing="ij"), np.uint8).reshape(3, -1).T
+    rand = np.random.default_rng(26).integers(0, 256, (1025 * 1024 - 8, 3), dtype=np.uint8)
+    lab = torch.from_numpy(np.concatenate([rand, corners]).reshape(1025, 1024, 3)).to(cuda_device)
+    out = color.lab_to_rgb_l(lab[..., 0], lab[..., 1:])
+    assert out.is_cuda and torch.equal(out, color.lab_to_rgb(lab))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 853, 1280), (3, 128, 160), (1, 97, 131)])
 def test_clahe_apply_kernel_on_card(cuda_device, shape):
     gray = torch.from_numpy(synth.night_scene(shape[1], shape[1], shape[2])[..., 0].copy())

@@ -136,6 +136,22 @@ def test_rgb_to_gray(rng):
                                   _j(jcolor.rgb_to_gray(jnp.asarray(rgb))))
 
 
+def _lab_triples():
+    """~1M seeded (L, a, b) byte triples and the eight 0/255 corners, as a
+    (1025, 1024, 3) uint8 image."""
+    corners = np.array(np.meshgrid(*[[0, 255]] * 3, indexing="ij"), np.uint8).reshape(3, -1).T
+    rand = np.random.default_rng(26).integers(0, 256, (1025 * 1024 - 8, 3), dtype=np.uint8)
+    return torch.from_numpy(np.concatenate([rand, corners]).reshape(1025, 1024, 3))
+
+
+def test_lab_to_rgb_l_equals_lab_to_rgb():
+    """A new L put back through lab_to_rgb_l, L and a, b given as strided
+    views of one Lab image, gives lab_to_rgb's bytes."""
+    lab = _lab_triples()
+    assert not lab[..., 0].is_contiguous() and not lab[..., 1:].is_contiguous()
+    assert torch.equal(color.lab_to_rgb_l(lab[..., 0], lab[..., 1:]), color.lab_to_rgb(lab))
+
+
 def test_subtract_max_u8(rng):
     a = rng.integers(0, 256, (40, 50), dtype=np.uint8)
     b = rng.integers(0, 256, (40, 50), dtype=np.uint8)

@@ -156,18 +156,24 @@ def lab_to_rgb(img: torch.Tensor, impl: str = "float") -> torch.Tensor:
         return _lab_to_rgb_lut(img)
     if impl != "float":
         raise ValueError(f"lab_to_rgb: impl must be 'float' or 'lut', got {impl!r}")
-    lum8 = f32(img[..., 0])
-    lum = lum8 * _LAB_INV["l"]
-    fy = (lum + 16.0) * _LAB_INV["r116"]
-    fx = fma_f32(f32(img[..., 1]) - 128.0, _LAB_INV["r500"], fy)
-    fz = fma_f32(128.0 - f32(img[..., 2]), _LAB_INV["r200"], fy)
+    return lab_to_rgb_l(img[..., 0], img[..., 1:])
+
+
+def lab_to_rgb_l(lum: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
+    """:func:`lab_to_rgb`'s float path on the Lab image whose L is ``lum``
+    (..., H, W) and a, b are ``ab`` (..., H, W, 2), read where they lie."""
+    lum8 = f32(lum)
+    lf = lum8 * _LAB_INV["l"]
+    fy = (lf + 16.0) * _LAB_INV["r116"]
+    fx = fma_f32(f32(ab[..., 0]) - 128.0, _LAB_INV["r500"], fy)
+    fz = fma_f32(128.0 - f32(ab[..., 1]), _LAB_INV["r200"], fy)
 
     def finv(t):
         t3 = (t * t) * t
         return torch.where(t3 > 0.008856, t3, (t + _LAB_INV["-16/116"]) * _LAB_INV["r7.787"])
 
     x, z = finv(fx), finv(fz)
-    y = torch.where(lum > 8.0, (fy * fy) * fy, lum8 * _LAB_INV["l/903.3"])
+    y = torch.where(lf > 8.0, (fy * fy) * fy, lum8 * _LAB_INV["l/903.3"])
     k = _LAB_INV["m"]
     rgb_lin = torch.stack([fma_f32(z, k[0][2], fma_f32(x, k[0][0], y * k[0][1])),
                            fma_f32(z, k[1][2], fma_f32(y, k[1][1], x * k[1][0])),

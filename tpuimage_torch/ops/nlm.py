@@ -74,4 +74,4 @@ def nlm_denoise_colored(img_rgb: torch.Tensor, h: float, h_color: float = None,
     lab = color.rgb_to_lab(img_rgb)
     lum = nlm_denoise(lab[..., 0], h, template_size, search_size)
     ab = nlm_denoise(lab[..., 1:], h_color, template_size, search_size, channels_last=True)
-    return color.lab_to_rgb(torch.cat([lum[..., None], ab], dim=-1))
+    return color.lab_to_rgb_l(lum, ab)

@@ -62,7 +62,7 @@ def _clahe_l(den: torch.Tensor) -> torch.Tensor:
     """CLAHE 2.0 at 8x8 tiles on Lab L."""
     lab = color.rgb_to_lab(den)
     lum = clahe(lab[..., 0], clip_limit=2.0, tiles_x=8, tiles_y=8)
-    return color.lab_to_rgb(torch.cat([lum[..., None], lab[..., 1:]], dim=-1))
+    return color.lab_to_rgb_l(lum, lab[..., 1:])
 
 
 def _stretch_sharpen(cl: torch.Tensor) -> torch.Tensor:

@@ -132,7 +132,7 @@ def enhance_details(rgb, amount: float = 1.0, device=None) -> torch.Tensor:
     lum = lab[..., 0]
     blurred = gaussian_blur_u8(lum, ksize=0, sigma=3.0)
     sharp = add_weighted(lum, 1.0 + amount, blurred, -amount, 0.0)
-    return color.lab_to_rgb(torch.cat([sharp[..., None], lab[..., 1:]], dim=-1))
+    return color.lab_to_rgb_l(sharp, lab[..., 1:])
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,14 +162,14 @@ def apply_contrast_stretching(rgb, device=None) -> torch.Tensor:
     """FaceEnhancement.py:266-278: NORM_MINMAX on Lab L."""
     lab = color.rgb_to_lab(as_input(rgb, device))
     lum = normalize_minmax(lab[..., 0])
-    return color.lab_to_rgb(torch.cat([lum[..., None], lab[..., 1:]], dim=-1))
+    return color.lab_to_rgb_l(lum, lab[..., 1:])
 
 
 def apply_histogram_equalization(rgb, device=None) -> torch.Tensor:
     """FaceEnhancement.py:281-295: CLAHE 0.5 at 8x8 tiles on Lab L."""
     lab = color.rgb_to_lab(as_input(rgb, device))
     lum = clahe(lab[..., 0], clip_limit=0.5, tiles_x=8, tiles_y=8)
-    return color.lab_to_rgb(torch.cat([lum[..., None], lab[..., 1:]], dim=-1))
+    return color.lab_to_rgb_l(lum, lab[..., 1:])
 
 
 def apply_masked_sharpening(rgb, mask_u8, amount: float = 1.0, device=None) -> torch.Tensor:
@@ -205,7 +205,7 @@ def _eye_roi_enhance(roi: torch.Tensor) -> torch.Tensor:
     r = median_blur(roi, 3, channels_last=True)
     lab = color.rgb_to_lab(r)
     lum = clahe(lab[..., 0], clip_limit=0.2, tiles_x=4, tiles_y=4)
-    enh = color.lab_to_rgb(torch.cat([lum[..., None], lab[..., 1:]], dim=-1))
+    enh = color.lab_to_rgb_l(lum, lab[..., 1:])
     enh = enhance_details(enh, amount=0.5)
     soft = gaussian_blur_u8(eye_ellipse(h, w, str(roi.device)), ksize=31, sigma=0.0)
     return eye_blend(enh, r, soft)

@@ -155,7 +155,7 @@ def enhance_contrast_clahe(rgb: torch.Tensor, clip_limit: float = 2.5,
     l_clahe = clahe(l_orig, clip_limit=clip_limit, tiles_x=tile_grid[0], tiles_y=tile_grid[1])
     table = _table_on(sky_blend_table, (float(sky_power), float(blend)), str(rgb.device))
     l_final = _lookup(table, l_orig.to(torch.int32) * 256 + l_clahe)
-    return color.lab_to_rgb(torch.cat([l_final[..., None], lab[..., 1:]], dim=-1))
+    return color.lab_to_rgb_l(l_final, lab[..., 1:])
 
 
 def sharpen_image(rgb: torch.Tensor, amount: float = 1.5, radius: float = 1.0) -> torch.Tensor:

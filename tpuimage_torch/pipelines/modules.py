@@ -52,7 +52,7 @@ from tpuimage_torch.ops.threshold import adaptive_threshold, threshold_binary
 def _lab_l_clahe(rgb: torch.Tensor, clip: float, tiles=(8, 8)) -> torch.Tensor:
     lab = color.rgb_to_lab(rgb)
     lum = clahe(lab[..., 0], clip_limit=clip, tiles_x=tiles[0], tiles_y=tiles[1])
-    return color.lab_to_rgb(torch.cat([lum[..., None], lab[..., 1:]], dim=-1))
+    return color.lab_to_rgb_l(lum, lab[..., 1:])
 
 
 # --- module 1: enhancement (cell 12) ----------------------------------------

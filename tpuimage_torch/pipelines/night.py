@@ -23,7 +23,7 @@ from typing import Dict
 import torch
 
 from tpuimage_torch.core.device import as_input
-from tpuimage_torch.ops.color import lab_to_rgb, rgb_to_lab
+from tpuimage_torch.ops.color import lab_to_rgb_l, rgb_to_lab
 from tpuimage_torch.ops.histogram import clahe
 from tpuimage_torch.ops.median import median_blur
 from tpuimage_torch.runtime.profiling import span
@@ -55,7 +55,7 @@ def night_rgb(rgb, device=None) -> Dict[str, torch.Tensor]:
         with span("night.clahe"):
             l_enh = clahe(lab[..., 0], clip_limit=CLIP_LIMIT, tiles_x=TILES, tiles_y=TILES)
         with span("night.lab_to_rgb"):
-            enhanced = lab_to_rgb(torch.cat([l_enh[..., None], lab[..., 1:]], dim=-1))
+            enhanced = lab_to_rgb_l(l_enh, lab[..., 1:])
         return {"original": x, "filtered": filtered, "enhanced": enhanced}
 
 

@@ -219,7 +219,7 @@ def _adaptive_clahe(rgb: torch.Tensor, clahe_clip: float, tile_grid: Tuple[int, 
     else:
         bright = torch.clamp(1.0 - shadow_mask, 0.0, 1.0)
         l_out = trunc_u8(_mix(f32(l_clahe), bright, f32(lum), 1.0 - bright, fuse_first))
-    return color.lab_to_rgb(torch.cat([l_out[..., None], lab[..., 1:]], dim=-1))
+    return color.lab_to_rgb_l(l_out, lab[..., 1:])
 
 
 def _channel_values(rgb: torch.Tensor) -> torch.Tensor:

@@ -39,8 +39,7 @@ _RECIP_255 = _F32(1.0) / _F32(255.0)
 
 def _apply_luminance(rgb: torch.Tensor, fn) -> torch.Tensor:
     lab = color.rgb_to_lab(rgb)
-    l2 = fn(lab[..., 0])
-    return color.lab_to_rgb(torch.cat([l2[..., None], lab[..., 1:]], dim=-1))
+    return color.lab_to_rgb_l(fn(lab[..., 0]), lab[..., 1:])
 
 
 def _channel_means(x: torch.Tensor) -> torch.Tensor:
@@ -181,7 +180,7 @@ def apply_enhancement_preset(rgb, preset: EnhancementPreset, gray: bool = False,
         if gray:
             x = l2
         else:
-            x = color.lab_to_rgb(torch.cat([l2[..., None], lab[..., 1:]], dim=-1))
+            x = color.lab_to_rgb_l(l2, lab[..., 1:])
     if p.invert:
         x = 255 - x
     return x
